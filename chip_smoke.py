@@ -1,0 +1,568 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one
+NVIDIA GPU: the quickest proof that the port builds, is right and serves.
+
+    python3 chip_smoke.py                 # every phase
+    python3 chip_smoke.py --profile       # + a profiled window of ticks
+
+Phases, each of which fails the run by raising:
+
+1. The card (``nvidia-smi`` name and power limit), torch and CUDA versions.
+2. Build the three hand-written kernels from ``src/repro_torch/kernels/csrc``
+   with nvcc (one process per source, in parallel).
+3. Each kernel against its plain PyTorch version at the main path's shapes,
+   in bf16 and f32, with its time beside its bound, the plain version's
+   time and one PyTorch library call's time (CUDA events, L2 flushed, no
+   host gaps inside the timed call).
+4. Full-width serve: granite-moe-1b-a400m (24 layers, bf16, random weights
+   from seed 0) through ``AFDRuntime`` + ``AFDServeEngine`` on a 24-request
+   seeded trace with chunked prefill, on the wall clock. Every request must
+   complete, measured M2N bytes must equal the Eq. 9/17 prediction, and
+   each kernel's launch count over this run must be > 0.
+5. Path check at full width: one 64-token prefill chunk and 4 decode steps
+   through the kernels and through the plain versions; the logits must
+   agree within the bf16 tolerance stated below.
+
+With ``--profile`` a last phase times 12 steady engine ticks (16
+sequences, prefill chunks interleaved with decode), traces the same ticks
+with ``torch.profiler`` and prints the device's busy share of the wall
+clock and its time by kernel.
+
+The last lines are the kernels' JSON record, the card's name and power
+limit, and ``{"ok": true, "device": {...}}``. Without a CUDA device, or
+without the rest of the repository beside it, the script exits non-zero
+and prints no result.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+
+# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
+PEAK_BYTES_S = 3.35e12
+PEAK_BF16_FLOPS = 989e12
+
+# Phase 5: kernel path vs plain path, full model in bf16. The two differ
+# in accumulation order and in where bf16 rounds (the plain decode forms
+# bf16 scores, the kernels f32), and a rare near-tie in top-8 routing can
+# flip one expert of one token; so the check is on the whole logit tensor:
+# ||kernel - plain|| / ||plain|| ≤ 5e-2. Greedy-token agreement is printed
+# but not gated: with random weights the top logits over 49k tokens are
+# near-ties, and a flip between two tokens whose plain logits differ by
+# less than twice the max abs error is already allowed by that error.
+PATH_REL_TOL = 5e-2
+
+REPLACES = {
+    "grouped_gemm": "src/repro/kernels/grouped_gemm.py:151",
+    "flash_prefill": "src/repro/kernels/flash_prefill.py:87",
+    "splitkv_attention": "src/repro/kernels/splitkv_attention.py:79",
+}
+
+
+def log(*args) -> None:
+    print(*args, flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+class Timer:
+    """Median device time of ``fn`` over ``iters`` calls, each between
+    CUDA events. Before each call a 256 MB buffer is rewritten, so that
+    inputs come from device memory as on the main path (every layer has
+    its own weights and cache), and the device then spins ~2 ms
+    (``torch.cuda._sleep``) while the host enqueues the call: the events
+    see the call's kernels back to back, without host launch gaps."""
+
+    SLEEP_CYCLES = 4_000_000
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.flush = torch.empty(64 << 20, dtype=torch.float32,
+                                 device="cuda")
+
+    def __call__(self, fn, iters: int = 20) -> float:
+        torch = self.torch
+        fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(iters):
+            self.flush.zero_()
+            torch.cuda._sleep(self.SLEEP_CYCLES)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        times.sort()
+        return times[len(times) // 2]
+
+
+def bound(bytes_moved: float, flops: float, peak_flops: float):
+    t_bytes = bytes_moved / PEAK_BYTES_S * 1e3
+    t_ops = flops / peak_flops * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def check_close(name, got, want, atol, rtol=1e-2) -> float:
+    err = (got.float() - want.float()).abs()
+    limit = atol + rtol * want.float().abs()
+    worst = float(err.max()) if err.numel() else 0.0
+    ok = bool((err <= limit).all())
+    log(f"  {name}: max_abs_err={worst:.3e} (atol {atol:.3e}, rtol {rtol}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name}: kernel disagrees with its plain "
+                             f"version (max abs err {worst})")
+    return worst
+
+
+# ---------------------------------------------------------------------------
+# Phase 3: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def routing(torch, tokens: int, n_experts: int, top_k: int, gen):
+    """Top-k expert ids of ``tokens`` tokens under a random router, and the
+    expert sort the F role runs on them."""
+    from repro_torch.models.moe import sort_by_expert
+    scores = torch.rand((tokens, n_experts), generator=gen, device="cuda")
+    topi = torch.topk(scores, top_k, dim=-1).indices.to(torch.int32)
+    sort_idx, _, sizes = sort_by_expert(topi, n_experts)
+    return sort_idx, sizes
+
+
+def kernel_grouped_gemm(torch, timer, cfg, gen):
+    from repro_torch.kernels import ops
+    E, D, F, k = cfg.n_experts, cfg.d_model, cfg.moe_d_ff, cfg.top_k
+    tol = {torch.float32: lambda kk: 2e-5 * kk,
+           torch.bfloat16: lambda kk: 0.15 * math.sqrt(kk)}
+    worst = 0.0
+    for dt in (torch.bfloat16, torch.float32):
+        for label, tokens in (("decode", 8), ("prefill", 64)):
+            sort_idx, sizes = routing(torch, tokens, E, k, gen)
+            x = torch.randn((tokens, D), generator=gen, device="cuda").to(dt)
+            wi = torch.randn((E, D, 2 * F), generator=gen,
+                             device="cuda").to(dt)
+            wo = torch.randn((E, F, D), generator=gen, device="cuda").to(dt)
+            h = torch.randn((tokens * k, F), generator=gen,
+                            device="cuda").to(dt)
+            args_up = (x, wi, sizes)
+            kw_up = dict(row_index=sort_idx // k)
+            args_dn = (h, wo, sizes)
+            kw_dn = dict(out_index=sort_idx, out_rows=tokens * k)
+            for part, args, kw, kk in (("gate|up", args_up, kw_up, D),
+                                       ("down", args_dn, kw_dn, F)):
+                got = ops.grouped_gemm(*args, **kw)
+                want = ops.grouped_gemm(*args, impl="plain", **kw)
+                err = check_close(f"grouped_gemm {label} {part} {dt}", got,
+                                  want, tol[dt](kk))
+                if dt == torch.bfloat16:
+                    worst = max(worst, err)
+        # empty groups and rows past sum(group_sizes)
+        sizes = torch.tensor([0, 17, 0, 0, 30, 1] + [0] * (E - 6),
+                             dtype=torch.int32, device="cuda")
+        x = torch.randn((64, D), generator=gen, device="cuda").to(dt)
+        w = torch.randn((E, D, 2 * F), generator=gen, device="cuda").to(dt)
+        got = ops.grouped_gemm(x, w, sizes)
+        check_close(f"grouped_gemm empty-groups+surplus {dt}", got,
+                    ops.grouped_gemm(x, w, sizes, impl="plain"), tol[dt](D))
+        if got[48:].abs().max() != 0:
+            raise AssertionError("surplus rows of the grouped GEMM are not 0")
+        if dt == torch.float32:
+            # fused gather + scatter == unfused composition, bit for bit
+            sort_idx, sizes = routing(torch, 64, E, k, gen)
+            x = torch.randn((64, D), generator=gen, device="cuda")
+            ri = sort_idx // k
+            fused = ops.grouped_gemm(x, w, sizes, row_index=ri,
+                                     out_index=sort_idx, out_rows=64 * k)
+            unfused = torch.zeros_like(fused)
+            unfused[sort_idx] = ops.grouped_gemm(x[ri], w, sizes)
+            if not torch.equal(fused, unfused):
+                raise AssertionError("fused grouped GEMM is not bit-identical "
+                                     "to gather -> GEMM -> scatter in f32")
+            log("  grouped_gemm fused == unfused (f32): bit-identical")
+
+    # timing, bf16, at the three shapes of the main path: decode (8
+    # sequences x top-8 = 64 rows) gate|up and down, prefill (a 64-token
+    # chunk, 512 rows) gate|up; the record keeps decode gate|up
+    rows = {}
+    for label, tokens, part in (("decode", 8, "gate|up"),
+                                ("decode", 8, "down"),
+                                ("prefill", 64, "gate|up")):
+        sort_idx, sizes = routing(torch, tokens, E, k, gen)
+        m = tokens * k
+        kk, nn = (D, 2 * F) if part == "gate|up" else (F, D)
+        w = torch.randn((E, kk, nn), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        if part == "gate|up":
+            x = torch.randn((tokens, kk), generator=gen,
+                            device="cuda").to(torch.bfloat16)
+            kw = dict(row_index=sort_idx // k)
+            xs = x[sort_idx // k].contiguous()
+            in_rows = tokens
+        else:
+            x = torch.randn((m, kk), generator=gen,
+                            device="cuda").to(torch.bfloat16)
+            kw = dict(out_index=sort_idx, out_rows=m)
+            xs, in_rows = x, m
+        ms = timer(lambda: ops.grouped_gemm(x, w, sizes, **kw))
+        plain_ms = timer(lambda: ops.grouped_gemm(x, w, sizes, impl="plain",
+                                                  **kw), iters=5)
+        library_ms = None
+        if hasattr(torch, "_grouped_mm"):
+            offs = torch.cumsum(sizes, 0).to(torch.int32)
+            library_ms = timer(lambda: torch._grouped_mm(xs, w, offs=offs))
+        visited = int((sizes > 0).sum())
+        nbytes = (in_rows * kk + visited * kk * nn + m * nn) * 2 + m * 4
+        b_ms, b_by = bound(nbytes, 2 * m * kk * nn, PEAK_BF16_FLOPS)
+        log(f"  grouped_gemm {label} {part} bf16 (M={m}, K={kk}, N={nn}, "
+            f"{visited}/{E} experts): kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, library {library_ms} ms, bound "
+            f"{b_ms:.4f} ms ({b_by})")
+        rows[(label, part)] = {"max_abs_err": worst, "ms": ms,
+                               "plain_ms": plain_ms, "bound_ms": b_ms,
+                               "bound_by": b_by, "library_ms": library_ms}
+    return rows[("decode", "gate|up")]
+
+
+def _sdpa_mask(torch, rows, t, t_valid):
+    cols = torch.arange(t, device="cuda")[None, :]
+    return (cols < t_valid) & (cols <= rows[:, None])
+
+
+def kernel_flash_prefill(torch, timer, cfg, gen):
+    from repro_torch.kernels import ops
+    import torch.nn.functional as F
+    hq, hkv, d, t, s = cfg.n_heads, cfg.n_kv_heads, cfg.d_head, 1024, 64
+    worst = 0.0
+    for dt in (torch.bfloat16, torch.float32):
+        q = torch.randn((1, s, hq, d), generator=gen, device="cuda").to(dt)
+        kc = torch.randn((1, t, hkv, d), generator=gen, device="cuda").to(dt)
+        vc = torch.randn((1, t, hkv, d), generator=gen, device="cuda").to(dt)
+        for off in (0, 448, 960):
+            tv = off + s
+            got = ops.flash_prefill_attention(q, kc, vc, q_offset=off,
+                                              t_valid=tv)
+            want = ops.flash_prefill_attention(q, kc, vc, q_offset=off,
+                                               t_valid=tv, impl="plain")
+            err = check_close(f"flash_prefill q_offset={off} t_valid={tv} "
+                              f"{dt}", got, want,
+                              5e-2 if dt == torch.bfloat16 else 2e-5)
+            if dt == torch.bfloat16:
+                worst = max(worst, err)
+    # timing: a 64-token chunk at offset 448 of a 1024-slot cache
+    q = torch.randn((1, s, hq, d), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    kc = torch.randn((1, t, hkv, d), generator=gen,
+                     device="cuda").to(torch.bfloat16)
+    vc = torch.randn_like(kc)
+    off, tv = 448, 512
+    ms = timer(lambda: ops.flash_prefill_attention(q, kc, vc, q_offset=off,
+                                                   t_valid=tv))
+    plain_ms = timer(lambda: ops.flash_prefill_attention(
+        q, kc, vc, q_offset=off, t_valid=tv, impl="plain"))
+    mask = _sdpa_mask(torch, off + torch.arange(s, device="cuda"), t, tv)
+    qt, kt, vt = q.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2)
+    library_ms = timer(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, enable_gqa=True))
+    keys = sum(min(off + j + 1, tv) for j in range(s))     # live keys
+    nbytes = (2 * s * hq * d + 2 * tv * hkv * d) * 2
+    b_ms, b_by = bound(nbytes, 4 * keys * hq * d, PEAK_BF16_FLOPS)
+    log(f"  flash_prefill bf16 (S={s}, q_offset={off}, t_valid={tv}, T={t}):"
+        f" kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+        f"{library_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms}
+
+
+def kernel_splitkv(torch, timer, cfg, gen):
+    from repro_torch.kernels import ops
+    import torch.nn.functional as F
+    b, hq, hkv, d, t = 8, cfg.n_heads, cfg.n_kv_heads, cfg.d_head, 1024
+    lengths = torch.tensor([1, 63, 64, 65, 300, 512, 777, 1024],
+                           dtype=torch.int32, device="cuda")
+    worst = 0.0
+    for dt in (torch.bfloat16, torch.float32):
+        q = torch.randn((b, hq, d), generator=gen, device="cuda").to(dt)
+        kc = torch.randn((b, t, hkv, d), generator=gen, device="cuda").to(dt)
+        vc = torch.randn((b, t, hkv, d), generator=gen, device="cuda").to(dt)
+        got, lse = ops.splitkv_attention(q, kc, vc, lengths, return_lse=True)
+        want, want_lse = ops.splitkv_attention(q, kc, vc, lengths,
+                                               return_lse=True, impl="plain")
+        tol = 5e-2 if dt == torch.bfloat16 else 1e-5
+        err = check_close(f"splitkv out {dt}", got, want, tol)
+        check_close(f"splitkv lse {dt}", lse, want_lse, tol)
+        if dt == torch.bfloat16:
+            worst = max(worst, err)
+    # timing: 8 sequences at the smoke serve's typical decode lengths
+    lengths = torch.tensor([330, 120, 512, 64, 400, 575, 250, 90],
+                           dtype=torch.int32, device="cuda")
+    q = torch.randn((b, hq, d), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    kc = torch.randn((b, t, hkv, d), generator=gen,
+                     device="cuda").to(torch.bfloat16)
+    vc = torch.randn_like(kc)
+    ms = timer(lambda: ops.splitkv_attention(q, kc, vc, lengths))
+    plain_ms = timer(lambda: ops.splitkv_attention(q, kc, vc, lengths,
+                                                   impl="plain"))
+    mask = (torch.arange(t, device="cuda")[None, :]
+            < lengths[:, None])[:, None, None, :]
+    qt, kt, vt = q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2)
+    library_ms = timer(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, enable_gqa=True))
+    live = int(lengths.sum())
+    nbytes = (2 * b * hq * d + 2 * live * hkv * d) * 2 + b * 4
+    b_ms, b_by = bound(nbytes, 4 * live * hq * d, PEAK_BF16_FLOPS)
+    log(f"  splitkv bf16 (B={b}, T={t}, {live} live keys): kernel {ms:.4f} "
+        f"ms, plain {plain_ms:.4f} ms, library {library_ms:.4f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by})")
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms}
+
+
+# ---------------------------------------------------------------------------
+# Phases 4 and 5
+# ---------------------------------------------------------------------------
+
+def serve(torch, cfg, params, card):
+    from repro_torch.kernels import ops
+    from repro_torch.parallel.afd import AFDRuntime, AFDStats
+    from repro_torch.serving.afd_engine import AFDServeEngine
+    from repro_torch.serving.workload import (LengthDist, Phase,
+                                              TrafficProfile, generate_trace)
+    rt = AFDRuntime(cfg, params)
+    # warm-up outside the measured run: cuBLAS handles, allocator
+    caches, pos = rt.init_cache(1, 64)
+    rt.prefill(torch.ones((1, 8), dtype=torch.int32, device="cuda"),
+               caches, pos)
+    rt.synchronize()
+    rt.stats = AFDStats()
+    profile = TrafficProfile(
+        name="chip-smoke", phases=(Phase(2.0, 12.0),),
+        prompt_len=LengthDist(64, 512), output_len=LengthDist(16, 64))
+    trace = generate_trace(profile, seed=0, max_requests=24)
+    eng = AFDServeEngine(rt, max_len=1024, n_bo=2, mb_slots=8,
+                         prefill_chunk=64, tick_seconds=None)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    eng.run(trace, max_ticks=20_000)
+    rt.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    s = eng.summary()
+    log(f"  {card}: {s['completed']}/{len(trace)} completed, "
+        f"{s['tokens_out']} tokens in {wall:.2f} s wall "
+        f"({s['tokens_out'] / wall:.1f} tokens/s), decode_ticks "
+        f"{s['decode_ticks']}, engine_ticks {s['engine_ticks']}, prefill "
+        f"chunks {s['prefill_chunks']}")
+    log(f"  TTFT p50 {s['ttft_p50']:.4f} s, p95 {s['ttft_p95']:.4f} s; "
+        f"mean TPOT {s['tpot_mean']:.4f} s; bytes_match_all "
+        f"{s['bytes_match_all']} (dispatch {s['dispatch_bytes']} B, combine "
+        f"{s['combine_bytes']} B)")
+    log(f"  launches: {launches} (per engine tick: "
+        + ", ".join(f"{k} {v / s['engine_ticks']:.2f}"
+                    for k, v in launches.items()) + ")")
+    log("  serve_summary " + json.dumps({**s, "wall_s": wall,
+                                         "launches": launches},
+                                        default=float))
+    if s["completed"] != len(trace):
+        raise AssertionError(f"only {s['completed']}/{len(trace)} requests "
+                             "completed")
+    if not s["bytes_match_all"]:
+        raise AssertionError("measured M2N bytes diverged from Eq. 9/17")
+    missing = [k for k, v in launches.items() if v <= 0]
+    if missing:
+        raise AssertionError(f"main path never launched {missing}")
+    # Every layer of every decode micro-batch and every prefill chunk went
+    # through the kernels: one split-KV launch per decode layer, one flash
+    # launch per prefill layer, a gate|up + down pair per MoE cycle.
+    layers = cfg.n_layers
+    decode = s["decode_ticks"] * eng.n_bo * layers
+    prefill = s["prefill_chunks"] * layers
+    expected = {"grouped_gemm": 2 * (decode + prefill),
+                "flash_prefill": prefill, "splitkv_attention": decode}
+    if launches != expected:
+        raise AssertionError(f"launch counts {launches} != {expected}")
+    return launches
+
+
+def path_check(torch, cfg, params):
+    from repro_torch.parallel.afd import AFDRuntime
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    tokens = torch.randint(1, cfg.vocab_size, (2, 68), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    results = []
+    for impl in (None, "plain"):
+        rt = AFDRuntime(cfg, params, impl=impl)
+        caches, pos = rt.init_cache(2, 128)
+        lg, caches, pos = rt.prefill(tokens[:, :64], caches, pos)
+        steps = [lg]
+        for j in range(64, 68):
+            out, caches, pos = rt.decode_step(tokens[:, j], caches, pos)
+            steps.append(out[:, None])
+        results.append(torch.cat(steps, dim=1).float())
+    got, want = results
+    if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
+        raise AssertionError("non-finite logits")
+    rel = float((got - want).norm() / want.norm())
+    worst = float((got - want).abs().max())
+    pick_k, pick_p = got.argmax(-1), want.argmax(-1)
+    top1 = float((pick_k == pick_p).float().mean())
+    # plain-logit gap between the two picks where they differ
+    gap = (want.gather(-1, pick_p[..., None])
+           - want.gather(-1, pick_k[..., None])).max()
+    log(f"  logits {tuple(got.shape)}: rel_err {rel:.3e} (≤ {PATH_REL_TOL}),"
+        f" max_abs_err {worst:.3e}, |plain| max "
+        f"{float(want.abs().max()):.3e}; greedy agreement {top1:.4f}, "
+        f"largest plain-logit gap between differing picks {float(gap):.3e}")
+    if rel > PATH_REL_TOL:
+        raise AssertionError("kernel path disagrees with the plain path")
+
+
+def _steady_engine(cfg, params, warm_ticks: int):
+    """16 requests of 256 prompt tokens arrive at once; after
+    ``warm_ticks`` ticks the engine interleaves one 64-token prefill chunk
+    per tick with decode. Admission does not depend on the clock, so two
+    engines built here run the same work tick for tick."""
+    import collections
+    from repro_torch.parallel.afd import AFDRuntime
+    from repro_torch.serving.afd_engine import AFDServeEngine
+    from repro_torch.serving.workload import ArrivalEvent
+    eng = AFDServeEngine(AFDRuntime(cfg, params), max_len=1024, n_bo=2,
+                         mb_slots=8, prefill_chunk=64, tick_seconds=None)
+    eng.trace = collections.deque(
+        ArrivalEvent(rid=i, t=0.0, prompt_len=256, max_new_tokens=64)
+        for i in range(16))
+    for _ in range(warm_ticks):
+        eng.tick()
+    eng.rt.synchronize()
+    return eng
+
+
+def profile_ticks(torch, cfg, params, n_ticks: int = 12,
+                  warm_ticks: int = 20) -> None:
+    """Device busy share of ``n_ticks`` steady engine ticks: the wall time
+    comes from an untraced run, the device's kernel time from a
+    ``torch.profiler`` trace of the same ticks on a second engine (the
+    tracer slows the host, not the kernels)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    eng = _steady_engine(cfg, params, warm_ticks)
+    t0 = time.perf_counter()
+    for _ in range(n_ticks):
+        eng.tick()
+    eng.rt.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    del eng
+    eng = _steady_engine(cfg, params, warm_ticks)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n_ticks):
+            eng.tick()
+        eng.rt.synchronize()
+    rows = sorted(((ev.self_device_time_total / 1e3, ev.count, ev.key)
+                   for ev in prof.key_averages()
+                   if ev.device_type == DeviceType.CUDA), reverse=True)
+    busy_ms = sum(r[0] for r in rows)
+    log(f"  {n_ticks} ticks: {wall_ms:.2f} ms wall untraced "
+        f"({wall_ms / n_ticks:.2f} ms/tick); device kernels {busy_ms:.2f} "
+        f"ms = busy share {busy_ms / wall_ms:.4f}, idle share "
+        f"{1 - busy_ms / wall_ms:.4f}; {sum(r[1] for r in rows)} kernel "
+        f"launches ({sum(r[1] for r in rows) / n_ticks:.0f} per tick)")
+    for dev_ms, count, key in rows[:10]:
+        log(f"  {dev_ms:9.3f} ms {count:6d} x  {key[:90]}")
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--profile", action="store_true",
+                    help="trace a window of engine ticks after phase 5")
+    args = ap.parse_args()
+
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.models.params import init_params
+
+    t_start = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    log(f"[1] card: {card}; torch {torch.__version__}, CUDA "
+        f"{torch.version.cuda}, {torch.cuda.device_count()} device(s)")
+
+    secs, build_logs = _build.build_all()
+    log(f"[2] kernels built in {secs:.1f} s")
+    for name, text in build_logs.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  {name}: {line.strip()}")
+
+    cfg = get_config("granite-moe-1b-a400m")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    timer = Timer(torch)
+    log("[3] kernels against their plain versions (main-path shapes)")
+    measured = {"grouped_gemm": kernel_grouped_gemm(torch, timer, cfg, gen),
+                "flash_prefill": kernel_flash_prefill(torch, timer, cfg, gen),
+                "splitkv_attention": kernel_splitkv(torch, timer, cfg, gen)}
+    del timer
+
+    log("[4] full-width serve: granite-moe-1b-a400m, 24 layers, bf16")
+    params = init_params(cfg, seed=0, device="cuda")
+    n_params = sum(t.numel() for t in _tensors(params))
+    log(f"  {n_params / 1e9:.3f} B parameters")
+    launches = serve(torch, cfg, params, card)
+
+    log("[5] path check: kernels vs plain versions, full width bf16")
+    path_check(torch, cfg, params)
+    if args.profile:
+        log("[6] profiled window of engine ticks")
+        profile_ticks(torch, cfg, params)
+    log(f"done in {time.perf_counter() - t_start:.1f} s")
+
+    kernels = [{"name": name, "route": "cuda",
+                "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+                "replaces": REPLACES[name], "launches": launches[name],
+                **measured[name]} for name in REPLACES]
+    print(json.dumps({"kernels": kernels}))
+    print(card_line())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def _tensors(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _tensors(v)
+    else:
+        yield tree
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,57 @@
+"""Load the JAX package's parameters into the port's layout.
+
+``params_from_jax`` takes the ``Model.init`` pytree as nested dicts and
+lists of numpy arrays (the caller converts; the bridge needs no JAX),
+unstacks ``decoder.prefix`` + ``decoder.stack[j][p]`` with the port's own
+``LayerPlan`` and returns the per-layer layout of
+``repro_torch.models.params.init_params``.
+
+numpy has no bfloat16 of its own: JAX bf16 arrays arrive as
+``ml_dtypes.bfloat16``, which ``torch.from_numpy`` rejects, so callers cast
+them to float32 first and the bridge casts back (bf16 → f32 → bf16 is
+exact).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.models.common import ArchConfig
+
+
+def _to_torch(tree, device, dtype: torch.dtype, name: str = ""):
+    if isinstance(tree, dict):
+        return {k: _to_torch(v, device, dtype, k) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_to_torch(v, device, dtype, name) for v in tree]
+    t = torch.from_numpy(np.array(tree))          # a writable copy
+    # The router is float32 in the JAX model whatever the param dtype.
+    return t.to(device=device,
+                dtype=torch.float32 if name == "router" else dtype)
+
+
+def _take(tree, p: int):
+    if isinstance(tree, dict):
+        return {k: _take(v, p) for k, v in tree.items()}
+    return tree[p]
+
+
+def params_from_jax(cfg: ArchConfig, tree, device="cuda",
+                    dtype: Optional[torch.dtype] = None) -> Dict[str, object]:
+    plan = cfg.layer_plan()
+    dec = tree["decoder"]
+    layers: List[Dict] = list(dec["prefix"])
+    for p in range(plan.n_periods):
+        for j in range(len(plan.period)):
+            layers.append(_take(dec["stack"][j], p))
+    if len(layers) != cfg.n_layers:
+        raise ValueError(f"{cfg.name}: pytree holds {len(layers)} layers, "
+                         f"config says {cfg.n_layers}")
+    dtype = dtype or cfg.params_dtype
+    return {"embed": _to_torch(tree["embed"], device, dtype),
+            "lm_head": _to_torch(tree.get("lm_head", {}), device, dtype),
+            "final_norm": _to_torch(dec["final_norm"], device, dtype),
+            "layers": _to_torch(layers, device, dtype)}

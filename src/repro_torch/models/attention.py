@@ -1,0 +1,143 @@
+"""Attention mixer: GQA with optional QKV bias and qk-norm, full or
+sliding-window KV caches. Counterpart of ``repro.models.attention``.
+
+GQA is computed in grouped form: q is reshaped to (B, S, n_kv, group, d)
+and contracted against (B, T, n_kv, d) keys directly.
+
+Kernel routing (``impl`` as in ``kernels.ops``: None picks by device):
+
+  * ``attention_decode`` sends full (non-ring) caches to the split-KV
+    kernel with ``lengths = pos + 1`` — the one-shard form of the JAX
+    package's split-KV decode override. Ring caches keep the dense masked
+    path, which the override leaves to them too.
+  * ``attention_prefill_cached`` sends a chunk to the flash-prefill kernel
+    when there is no sliding window and every sequence starts the chunk at
+    the same position (the kernel's ``q_offset`` is one scalar), as the JAX
+    package guards it; otherwise the dense masked path.
+
+The plain path (CPU tensors or ``impl="plain"``) is the dense masked form
+of the JAX package's default, so chunked prefill stays bit-exact against
+token-by-token decode on it.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.kernels import ops as kops
+from repro_torch.models import kvcache
+from repro_torch.models.common import ArchConfig
+from repro_torch.models.layers import apply_rope, rmsnorm_1d
+
+NEG_INF = -1e30
+
+
+def _project_q(params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+    q = x @ params["wq"].to(x.dtype)
+    if "bq" in params:
+        q = q + params["bq"].to(x.dtype)
+    q = q.reshape(*q.shape[:-1], cfg.n_heads, cfg.d_head)
+    if "q_norm" in params:
+        q = rmsnorm_1d(params["q_norm"], q, cfg.rms_eps)
+    return q
+
+
+def _project_kv(params, cfg: ArchConfig,
+                x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    k = x @ params["wk"].to(x.dtype)
+    v = x @ params["wv"].to(x.dtype)
+    if "bk" in params:
+        k = k + params["bk"].to(x.dtype)
+        v = v + params["bv"].to(x.dtype)
+    k = k.reshape(*k.shape[:-1], cfg.n_kv_heads, cfg.d_head)
+    v = v.reshape(*v.shape[:-1], cfg.n_kv_heads, cfg.d_head)
+    if "k_norm" in params:
+        k = rmsnorm_1d(params["k_norm"], k, cfg.rms_eps)
+    return k, v
+
+
+def gqa_scores_softmax_out(cfg: ArchConfig, q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor,
+                           mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """Grouped attention core. q: (B, S, Hq, d); k, v: (B, T, Hkv, d);
+    mask broadcastable to (B, 1, 1, S, T) or None. Returns (B, S, Hq·d).
+
+    Scores are formed in the input dtype and softmaxed in float32; the
+    probabilities are cast back before the value contraction, as in JAX.
+    """
+    b, s, hq, d = q.shape
+    hkv = k.shape[2]
+    qg = q.reshape(b, s, hkv, hq // hkv, d)
+    scores = torch.einsum("bskgd,btkd->bkgst", qg, k) * (1.0 / math.sqrt(d))
+    scores = scores.float()
+    if mask is not None:
+        scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    out = torch.einsum("bkgst,btkd->bskgd", probs, v)
+    return out.reshape(b, s, hq * d)
+
+
+def _output_proj(params, x_attn: torch.Tensor) -> torch.Tensor:
+    return x_attn @ params["wo"].to(x_attn.dtype)
+
+
+def attention_prefill_cached(params, cfg: ArchConfig, x: torch.Tensor,
+                             cache: kvcache.Cache, pos: torch.Tensor,
+                             impl: Optional[str] = None
+                             ) -> Tuple[torch.Tensor, kvcache.Cache]:
+    """Multi-token chunk against a live cache. x: (B, C, D); pos: (B,)
+    absolute position of x[:, 0]. All C keys/values are written first;
+    on the dense path every row then attends over the full cache under its
+    own validity mask (``valid_mask_chunk``), so row j's arithmetic is the
+    same as a decode step at pos + j."""
+    b, c, _ = x.shape
+    q = _project_q(params, cfg, x)
+    k_new, v_new = _project_kv(params, cfg, x)
+    positions = pos[:, None] + torch.arange(c, dtype=pos.dtype,
+                                            device=pos.device)[None, :]
+    if cfg.use_rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k_new = apply_rope(k_new, positions, cfg.rope_theta)
+    cache = kvcache.write_kv_chunk(cfg, cache, k_new, v_new, pos)
+    t = cache["k"].shape[1]
+    starts = pos.tolist() if kops.resolve_impl(impl, x) == "cuda" else []
+    if (starts and cfg.sliding_window is None
+            and all(p == starts[0] for p in starts)):
+        off = starts[0]
+        out = kops.flash_prefill_attention(
+            q, cache["k"], cache["v"], causal=cfg.causal, impl="cuda",
+            q_offset=off, t_valid=min(off + c, t)).reshape(b, c, -1)
+    else:
+        valid = kvcache.valid_mask_chunk(cfg, t, pos, c)       # (B, C, T)
+        out = gqa_scores_softmax_out(cfg, q, cache["k"], cache["v"],
+                                     valid[:, None, None, :, :])
+    return _output_proj(params, out), cache
+
+
+def attention_decode(params, cfg: ArchConfig, x: torch.Tensor,
+                     cache: kvcache.Cache, pos: torch.Tensor,
+                     impl: Optional[str] = None
+                     ) -> Tuple[torch.Tensor, kvcache.Cache]:
+    """One-token step. x: (B, 1, D); pos: (B,) current absolute positions.
+    Keys carry RoPE at their absolute positions (applied at write time), so
+    ring-buffer eviction needs no re-rotation."""
+    q = _project_q(params, cfg, x)
+    k_new, v_new = _project_kv(params, cfg, x)
+    if cfg.use_rope:
+        q = apply_rope(q, pos[:, None], cfg.rope_theta)
+        k_new = apply_rope(k_new, pos[:, None], cfg.rope_theta)
+    cache = kvcache.write_kv(cfg, cache, k_new, v_new, pos)
+    t = cache["k"].shape[1]
+    if kops.resolve_impl(impl, x) == "cuda" and cfg.sliding_window is None:
+        lengths = torch.clamp(pos + 1, max=t).to(torch.int32)
+        out = kops.splitkv_attention(q[:, 0], cache["k"], cache["v"],
+                                     lengths, impl="cuda")
+        out = out.reshape(x.shape[0], 1, -1)
+    else:
+        valid = kvcache.valid_mask(cfg, t, pos)                # (B, T)
+        out = gqa_scores_softmax_out(cfg, q, cache["k"], cache["v"],
+                                     valid[:, None, None, None, :])
+    return _output_proj(params, out), cache

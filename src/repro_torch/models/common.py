@@ -1,0 +1,194 @@
+"""Shared model machinery: ArchConfig, layer plans and initializers.
+
+A copy of ``repro.models.common`` (which imports JAX) without the sharding
+hooks: dtypes resolve to ``torch.dtype`` and the initializers draw from a
+``torch.Generator``. ``layer_plan()`` still factors depth into a prefix
+plus a repeated period, because the JAX parameter pytree is stacked that
+way and ``repro_torch.bridge`` unstacks it with this plan.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+import zlib
+from typing import List, Optional, Sequence, Tuple
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerSpec:
+    """One decoder layer's structure."""
+    kind: str                   # "attn" | "mamba"
+    moe: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerPlan:
+    prefix: Tuple[LayerSpec, ...]
+    period: Tuple[LayerSpec, ...]
+    n_periods: int
+
+    def flat(self) -> List[LayerSpec]:
+        return list(self.prefix) + list(self.period) * self.n_periods
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchConfig:
+    name: str
+    family: str                 # dense | moe | hybrid | ssm | vlm | audio
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int                   # dense-layer FFN width (0 for pure-SSM)
+    vocab_size: int
+    d_head: int = 0             # default d_model // n_heads
+
+    # attention details
+    qkv_bias: bool = False
+    qk_norm: bool = False
+    sliding_window: Optional[int] = None
+    rope_theta: float = 1e4
+    use_rope: bool = True
+    max_position: int = 1 << 20
+
+    # MoE
+    n_experts: int = 0
+    top_k: int = 0
+    moe_d_ff: int = 0
+    n_shared_experts: int = 0
+    shared_d_ff: int = 0
+    moe_layer_offset: int = 0
+    moe_layer_period: int = 1
+    router_renorm: bool = True
+
+    # hybrid / SSM (Mamba-2)
+    attn_layer_offset: int = 0
+    attn_layer_period: int = 1
+    ssm_state: int = 0
+    ssm_conv: int = 4
+    ssm_expand: int = 2
+    ssm_head_dim: int = 64
+    ssm_groups: int = 1
+    ssm_chunk: int = 64
+
+    # encoder-decoder / VLM frontends (not carried by the port yet)
+    n_encoder_layers: int = 0
+    encoder_seq: int = 0
+    vision_seq: int = 0
+
+    # misc
+    causal: bool = True
+    force_unroll: bool = False
+    tie_embeddings: bool = False
+    rms_eps: float = 1e-6
+    norm_type: str = "rmsnorm"  # rmsnorm | layernorm
+    act: str = "silu"           # silu | gelu
+    dtype: str = "float32"      # activation/compute dtype
+    param_dtype: str = "float32"
+    moe_capacity_factor: float = 1.25
+    remat: bool = False
+
+    def __post_init__(self):
+        if self.d_head == 0 and self.n_heads > 0:
+            object.__setattr__(self, "d_head", self.d_model // self.n_heads)
+
+    @property
+    def is_moe(self) -> bool:
+        return self.n_experts > 1
+
+    @property
+    def is_encdec(self) -> bool:
+        return self.n_encoder_layers > 0
+
+    @property
+    def q_dim(self) -> int:
+        return self.n_heads * self.d_head
+
+    @property
+    def kv_dim(self) -> int:
+        return self.n_kv_heads * self.d_head
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        return getattr(torch, self.dtype)
+
+    @property
+    def params_dtype(self) -> torch.dtype:
+        return getattr(torch, self.param_dtype)
+
+    def is_attn_layer(self, i: int) -> bool:
+        if self.ssm_state == 0:
+            return True
+        if self.attn_layer_period <= 0:
+            return False
+        return i % self.attn_layer_period == self.attn_layer_offset
+
+    def is_moe_layer(self, i: int) -> bool:
+        if not self.is_moe:
+            return False
+        return (i >= self.moe_layer_offset and
+                (i - self.moe_layer_offset) % self.moe_layer_period == 0)
+
+    def layer_spec(self, i: int) -> LayerSpec:
+        kind = "attn" if self.is_attn_layer(i) else "mamba"
+        return LayerSpec(kind=kind, moe=self.is_moe_layer(i))
+
+    def layer_plan(self) -> LayerPlan:
+        """Factor depth into prefix + homogeneous repeated period, exactly
+        as ``repro.models.common.ArchConfig.layer_plan`` does (the JAX
+        parameter stack is laid out by this plan)."""
+        specs = [self.layer_spec(i) for i in range(self.n_layers)]
+        n = self.n_layers
+        best = LayerPlan(prefix=tuple(specs), period=(), n_periods=0)
+        if self.force_unroll:
+            return best
+        for p in range(1, min(n, 16) + 1):
+            for s in range(0, min(n, 8) + 1):
+                if (n - s) % p != 0 or (n - s) // p < 2:
+                    continue
+                window = specs[s:s + p]
+                ok = all(specs[s + j] == window[j % p]
+                         for j in range(n - s))
+                if ok:
+                    plan = LayerPlan(prefix=tuple(specs[:s]),
+                                     period=tuple(window),
+                                     n_periods=(n - s) // p)
+                    if (not best.n_periods or
+                            len(plan.prefix) < len(best.prefix)):
+                        best = plan
+                    break
+            if best.n_periods:
+                break
+        return best
+
+
+# ---------------------------------------------------------------------------
+# Initializers
+# ---------------------------------------------------------------------------
+
+def _generator(seed: int, name: str, device) -> torch.Generator:
+    """Deterministic per-name generator: the stream of one parameter does
+    not depend on how many parameters were drawn before it."""
+    g = torch.Generator(device=device)
+    g.manual_seed((seed * 1_000_003 + zlib.crc32(name.encode())) % (1 << 63))
+    return g
+
+
+def dense_init(seed: int, name: str, shape: Sequence[int], dtype,
+               device, fan_in: Optional[int] = None) -> torch.Tensor:
+    """normal × 1/sqrt(fan_in), drawn in float32 then cast."""
+    fan = fan_in if fan_in is not None else shape[0]
+    scale = 1.0 / math.sqrt(max(fan, 1))
+    x = torch.randn(tuple(shape), generator=_generator(seed, name, device),
+                    device=device, dtype=torch.float32)
+    return (x * scale).to(dtype)
+
+
+def embed_init(seed: int, name: str, shape: Sequence[int], dtype,
+               device) -> torch.Tensor:
+    x = torch.randn(tuple(shape), generator=_generator(seed, name, device),
+                    device=device, dtype=torch.float32)
+    return (x * 0.02).to(dtype)

@@ -1,0 +1,103 @@
+"""KV caches for autoregressive decoding: ``{"k", "v"}`` planes of shape
+(B, T, n_kv, d_head), T = max context, or T = window for sliding-window
+archs (a ring: slot = pos mod window). Counterpart of
+``repro.models.kvcache`` for attention layers.
+
+The writers update the cache tensors in place and return the same dict
+(the JAX versions return new arrays): a decode step then moves one row per
+sequence instead of copying the cache.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from repro_torch.models.common import ArchConfig
+
+Cache = Dict[str, torch.Tensor]
+
+
+def attn_cache_len(cfg: ArchConfig, max_len: int) -> int:
+    """Ring length for sliding-window archs, else the full context."""
+    if cfg.sliding_window is not None:
+        return min(cfg.sliding_window, max_len)
+    return max_len
+
+
+def init_attn_cache(cfg: ArchConfig, batch: int, max_len: int,
+                    device) -> Cache:
+    shape = (batch, attn_cache_len(cfg, max_len), cfg.n_kv_heads, cfg.d_head)
+    return {"k": torch.zeros(shape, dtype=cfg.compute_dtype, device=device),
+            "v": torch.zeros(shape, dtype=cfg.compute_dtype, device=device)}
+
+
+def write_kv(cfg: ArchConfig, cache: Cache, k_new: torch.Tensor,
+             v_new: torch.Tensor, pos: torch.Tensor) -> Cache:
+    """Write one step's k/v (B, 1, n_kv, d_head) at per-sequence ``pos``.
+
+    Ring caches wrap (slot = pos mod window). A full cache drops writes at
+    ``pos >= T``, as the JAX scatter does; they are masked on the device
+    (no host sync), and each sequence writes one slot, so no index repeats.
+    """
+    t = cache["k"].shape[1]
+    slot = pos.long() % t if cfg.sliding_window is not None else pos.long()
+    inside = (slot < t)[:, None, None]
+    slot = slot.clamp(max=t - 1)
+    idx = torch.arange(k_new.shape[0], device=slot.device)
+    for name, new in (("k", k_new), ("v", v_new)):
+        plane = cache[name]
+        plane[idx, slot] = torch.where(inside, new[:, 0].to(plane.dtype),
+                                       plane[idx, slot])
+    return cache
+
+
+def write_kv_chunk(cfg: ArchConfig, cache: Cache, k_new: torch.Tensor,
+                   v_new: torch.Tensor, pos: torch.Tensor) -> Cache:
+    """Write a chunk's k/v (B, C, n_kv, d_head); row j lands at absolute
+    position ``pos + j``.
+
+    Identical to C sequential ``write_kv`` calls: under ring wrap only the
+    last ``t`` positions survive such a loop, so the overwritten head is
+    dropped first and every slot is written once (``index_put_`` with
+    repeated indices is undefined, as XLA's scatter is). Positions past the
+    end of a full cache are dropped.
+    """
+    t = cache["k"].shape[1]
+    b, c = k_new.shape[0], k_new.shape[1]
+    if cfg.sliding_window is not None and c > t:
+        k_new, v_new = k_new[:, c - t:], v_new[:, c - t:]
+        pos = pos + (c - t)
+        c = t
+    positions = pos.long()[:, None] + torch.arange(c, device=pos.device)
+    slot = positions % t if cfg.sliding_window is not None else positions
+    bidx = torch.arange(b, device=pos.device)[:, None].expand(b, c)
+    keep = slot < t
+    for name, new in (("k", k_new), ("v", v_new)):
+        plane = cache[name]
+        plane[bidx[keep], slot[keep]] = new.to(plane.dtype)[keep]
+    return cache
+
+
+def valid_mask(cfg: ArchConfig, cache_len: int,
+               pos: torch.Tensor) -> torch.Tensor:
+    """(B, T) bool — cache slots holding live keys when querying at pos."""
+    slots = torch.arange(cache_len, device=pos.device)[None, :]
+    p = pos.long()[:, None]
+    if cfg.sliding_window is None:
+        return slots <= p
+    age = (p % cache_len - slots) % cache_len
+    return (age <= p) & (age < cache_len)
+
+
+def valid_mask_chunk(cfg: ArchConfig, cache_len: int, pos: torch.Tensor,
+                     chunk: int) -> torch.Tensor:
+    """(B, C, T) bool — ``valid_mask`` at ``pos + j`` for each chunk row."""
+    slots = torch.arange(cache_len, device=pos.device)[None, None, :]
+    p = (pos.long()[:, None]
+         + torch.arange(chunk, device=pos.device)[None, :])[..., None]
+    if cfg.sliding_window is None:
+        return slots <= p
+    age = (p % cache_len - slots) % cache_len
+    return (age <= p) & (age < cache_len)

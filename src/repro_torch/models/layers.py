@@ -1,0 +1,105 @@
+"""Basic layers: norms, rotary embeddings, activations, dense MLP,
+embeddings. Counterpart of ``repro.models.layers``: functions
+``f(params, cfg, x, ...)`` on nested dicts of tensors, weights laid out
+``(in, out)`` and applied as ``x @ w``; reductions in float32.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.common import ArchConfig, dense_init
+
+
+def apply_norm(params, cfg: ArchConfig, x: torch.Tensor,
+               eps: Optional[float] = None) -> torch.Tensor:
+    eps = eps if eps is not None else cfg.rms_eps
+    xf = x.float()
+    if cfg.norm_type == "layernorm" and "bias" in params:
+        mean = xf.mean(-1, keepdim=True)
+        var = (xf - mean).square().mean(-1, keepdim=True)
+        y = (xf - mean) * torch.rsqrt(var + eps)
+        y = y * params["scale"].float() + params["bias"].float()
+    else:
+        ms = xf.square().mean(-1, keepdim=True)
+        y = xf * torch.rsqrt(ms + eps) * params["scale"].float()
+    return y.to(x.dtype)
+
+
+def rmsnorm_1d(scale: torch.Tensor, x: torch.Tensor,
+               eps: float = 1e-6) -> torch.Tensor:
+    """RMS norm over the last dim with a raw scale vector (qk-norm)."""
+    xf = x.float()
+    ms = xf.square().mean(-1, keepdim=True)
+    return (xf * torch.rsqrt(ms + eps) * scale.float()).to(x.dtype)
+
+
+def rope_frequencies(d_head: int, theta: float, device) -> torch.Tensor:
+    half = d_head // 2
+    return 1.0 / (theta ** (torch.arange(0, half, dtype=torch.float32,
+                                         device=device) / half))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (..., S, n_heads, d_head); positions broadcastable to (..., S)."""
+    freqs = rope_frequencies(x.shape[-1], theta, x.device)
+    angles = positions[..., None].float() * freqs             # (..., S, half)
+    cos = torch.cos(angles)[..., None, :]
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def activation(cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+    if cfg.act == "gelu":
+        return F.gelu(x, approximate="tanh")
+    return F.silu(x)
+
+
+def init_mlp(seed: int, name: str, cfg: ArchConfig, device,
+             d_ff: int) -> Dict[str, torch.Tensor]:
+    """Gated MLP params: fused [gate; up] ``wi`` (D, 2F) and ``wo`` (F, D)."""
+    D = cfg.d_model
+    return {"wi": dense_init(seed, f"{name}.wi", (D, 2 * d_ff),
+                             cfg.params_dtype, device, fan_in=D),
+            "wo": dense_init(seed, f"{name}.wo", (d_ff, D), cfg.params_dtype,
+                             device, fan_in=d_ff)}
+
+
+def apply_mlp(params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+    """Gated MLP: fused [gate; up] projection, activation, down."""
+    h = x @ params["wi"].to(x.dtype)
+    if "bi" in params:
+        h = activation(cfg, h + params["bi"].to(x.dtype))
+    else:
+        gate, up = h.chunk(2, dim=-1)
+        h = activation(cfg, gate) * up
+    out = h @ params["wo"].to(x.dtype)
+    if "bo" in params:
+        out = out + params["bo"].to(x.dtype)
+    return out
+
+
+def embed_tokens(params, cfg: ArchConfig, tokens: torch.Tensor,
+                 positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+    x = params["tok"][tokens.long()].to(cfg.compute_dtype)
+    if "pos" in params and positions is not None:
+        cap = params["pos"].shape[0]
+        x = x + params["pos"][positions.long().clamp(0, cap - 1)].to(
+            cfg.compute_dtype)
+    return x
+
+
+def apply_lm_head(head_params, embed_params, cfg: ArchConfig,
+                  x: torch.Tensor) -> torch.Tensor:
+    """Logits in float32. A tied head reads ``embed.tok`` transposed unless
+    the caller put a contiguous (D, V) copy in ``head_params["w"]``."""
+    w = head_params.get("w")
+    if w is None:
+        w = embed_params["tok"].T
+    return (x @ w.to(x.dtype)).float()

@@ -1,0 +1,308 @@
+"""Attention-FFN Disaggregation (AFD) runtime — the paper's Fig. 1a
+architecture on two device roles. Counterpart of ``repro.parallel.afd``.
+
+  * **A role** — embeddings, attention mixers, norms, dense MLPs, shared
+    experts, the router and the LM head.
+  * **F role** — the routed-expert weights of every MoE layer.
+
+Per MoE layer and micro-batch the runtime performs the paper's M2N cycle:
+
+    A: attention sublayer + router           (t_a)
+    dispatch: tokens + gating  A → F         (t_dispatch)  [.to(f_device)]
+    F: grouped-GEMM expert FFN               (t_f)
+    combine: routed outputs  F → A           (t_combine)   [.to(a_device)]
+
+Both roles default to the one card; dispatch and combine are then no-op
+moves, and the byte counters still record what would cross the wire so
+the serving engine can check them against the Eq. 9/17 prediction.
+``decode_step_3bo`` issues micro-batches in the 3BO rotation order; the
+rotation runs on one CUDA stream (overlapping it on separate streams is
+later work).
+
+Dense architectures have no routed experts: ``AFDRuntime`` refuses them.
+Mamba mixers are not ported yet and are refused too.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Sequence
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops as kops
+from repro_torch.models import attention as attn_mod
+from repro_torch.models import kvcache, moe as moe_mod
+from repro_torch.models.common import ArchConfig, LayerSpec
+from repro_torch.models.layers import (apply_lm_head, apply_mlp, apply_norm,
+                                       embed_tokens)
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` means the CUDA device; asking for CUDA without one raises
+    (the runtime never carries on on the CPU unless told to)."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass device='cpu' "
+                           "to run the port on the CPU")
+    return dev
+
+
+def _to(tree, device: torch.device):
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device)
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_to(v, device) for v in tree]
+    return tree
+
+
+def split_roles(params, cfg: ArchConfig):
+    """Return (a_params, f_expert_params). Experts leave the A side."""
+    a_layers, f_layers = [], []
+    for lp in params["layers"]:
+        lp = dict(lp)
+        f_entry = None
+        if "moe" in lp:
+            moe_p = dict(lp["moe"])
+            f_entry = {"wi": moe_p.pop("wi"), "wo": moe_p.pop("wo")}
+            lp["moe"] = moe_p            # router + shared experts stay on A
+        a_layers.append(lp)
+        f_layers.append(f_entry)
+    a_params = {"embed": params["embed"], "lm_head": params["lm_head"],
+                "final_norm": params["final_norm"], "layers": a_layers}
+    return a_params, f_layers
+
+
+@dataclasses.dataclass
+class AFDStats:
+    """M2N wire counters; ``snapshot()``/``since()`` give the serving
+    engine per-window deltas to diff against the Eq. 9/17 prediction."""
+    dispatch_bytes: int = 0
+    combine_bytes: int = 0
+    dispatches: int = 0
+    tokens_routed: int = 0
+
+    def record(self, n_tokens: int, hidden: int, dtype_bytes: int,
+               meta_bytes: int) -> None:
+        self.dispatch_bytes += n_tokens * hidden * dtype_bytes + meta_bytes
+        self.combine_bytes += n_tokens * hidden * dtype_bytes
+        self.dispatches += 1
+        self.tokens_routed += n_tokens
+
+    def snapshot(self) -> "AFDStats":
+        return dataclasses.replace(self)
+
+    def since(self, prev: "AFDStats") -> "AFDStats":
+        return AFDStats(
+            dispatch_bytes=self.dispatch_bytes - prev.dispatch_bytes,
+            combine_bytes=self.combine_bytes - prev.combine_bytes,
+            dispatches=self.dispatches - prev.dispatches,
+            tokens_routed=self.tokens_routed - prev.tokens_routed)
+
+
+class AFDRuntime:
+    """Two-role decode/prefill runtime.
+
+    ``device=None`` means the CUDA device (raises without one); ``a_device``
+    and ``f_device`` default to ``device``. ``impl`` picks the kernels as
+    ``kernels.ops`` does: None by device, ``"plain"`` forces the plain
+    PyTorch versions.
+    """
+
+    def __init__(self, cfg: ArchConfig, params, device=None, a_device=None,
+                 f_device=None, impl: Optional[str] = None):
+        if not cfg.is_moe:
+            raise ValueError(f"{cfg.name}: AFD requires routed experts")
+        self.cfg = cfg
+        self.specs: List[LayerSpec] = cfg.layer_plan().flat()
+        if any(s.kind != "attn" for s in self.specs):
+            raise NotImplementedError(
+                f"{cfg.name}: Mamba mixers are not ported yet")
+        device = resolve_device(device)
+        self.a_device = resolve_device(a_device or device)
+        self.f_device = resolve_device(f_device or device)
+        self.impl = impl
+        self.stats = AFDStats()
+        a_params, f_layers = split_roles(params, cfg)
+        self.a_params = _to(a_params, self.a_device)
+        if cfg.tie_embeddings:
+            # One contiguous (D, V) copy of the tied head: a product with
+            # the transposed view takes another CPU GEMM path at different
+            # row counts, which would break chunk == decode bit-exactness.
+            self.a_params["lm_head"] = {
+                "w": self.a_params["embed"]["tok"].T.contiguous()}
+        self.f_layers = [None if fl is None else _to(fl, self.f_device)
+                         for fl in f_layers]
+
+    def synchronize(self) -> None:
+        """Wait for the runtime's devices (wall-clock timing)."""
+        for dev in {self.a_device, self.f_device}:
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+
+    # ---- F-role program ----------------------------------------------------
+
+    def _ffn_impl(self, wi, wo, tokens, topw, topi):
+        """Routed-expert FFN given the gating from the A role. The dispatch
+        gather rides into the first grouped GEMM as ``row_index`` and the
+        combine unpermute out of the second as an ``out_index`` scatter."""
+        cfg = self.cfg
+        n, d = tokens.shape
+        sort_idx, _, group_sizes = moe_mod.sort_by_expert(topi, cfg.n_experts)
+        h = kops.grouped_gemm(tokens, wi.to(tokens.dtype), group_sizes,
+                              impl=self.impl,
+                              row_index=sort_idx // cfg.top_k)
+        gate, up = h.chunk(2, dim=-1)
+        h = F.silu(gate) * up
+        ys = kops.grouped_gemm(h, wo.to(tokens.dtype), group_sizes,
+                               impl=self.impl, out_index=sort_idx,
+                               out_rows=n * cfg.top_k)
+        y = ys.reshape(n, cfg.top_k, d)
+        return torch.einsum("nkd,nk->nd", y, topw.to(tokens.dtype))
+
+    # ---- per-layer A-role pieces -------------------------------------------
+
+    def _mixer(self, lp, x, cache, pos):
+        h = apply_norm(lp["ln1"], self.cfg, x)
+        mix, nc = attn_mod.attention_decode(lp["attn"], self.cfg, h, cache,
+                                            pos, impl=self.impl)
+        return x + mix, nc
+
+    def _ffn_local(self, lp, spec: LayerSpec, x):
+        """Dense-MLP layers run wholly on the A role."""
+        if spec.moe or "mlp" not in lp:
+            return x
+        h = apply_norm(lp["ln2"], self.cfg, x)
+        return x + apply_mlp(lp["mlp"], self.cfg, h)
+
+    # ---- the M2N cycle -------------------------------------------------------
+
+    def _moe_cycle(self, lp, f_entry, x):
+        """Norm → route (A) → dispatch → expert FFN (F) → combine (A)."""
+        cfg = self.cfg
+        h = apply_norm(lp["ln2"], cfg, x)
+        tokens = h.reshape(-1, cfg.d_model)
+        _, topw, topi = moe_mod.route(lp["moe"], cfg, tokens)
+
+        # dispatch: M2N transfer A → F. Gating metadata is priced at 4 bytes
+        # per index and per weight, as the Eq. 9/17 predictor assumes.
+        tok_f = tokens.to(self.f_device)
+        topw_f = topw.to(self.f_device)
+        topi_f = topi.to(self.f_device)
+        self.stats.record(tokens.shape[0], cfg.d_model,
+                          tokens.element_size(),
+                          topi.numel() * 4 + topw.numel() * 4)
+
+        routed_f = self._ffn_impl(f_entry["wi"], f_entry["wo"], tok_f,
+                                  topw_f, topi_f)
+        routed = routed_f.to(self.a_device)         # combine: F → A
+
+        out = x + routed.reshape(x.shape)
+        if "shared" in lp["moe"]:
+            out = out + apply_mlp(lp["moe"]["shared"], cfg, h)
+        return out
+
+    def _ffn(self, i: int, spec: LayerSpec, x):
+        lp = self.a_params["layers"][i]
+        if spec.moe:
+            return self._moe_cycle(lp, self.f_layers[i], x)
+        return self._ffn_local(lp, spec, x)
+
+    def _head(self, x):
+        x = apply_norm(self.a_params["final_norm"], self.cfg, x)
+        return apply_lm_head(self.a_params["lm_head"],
+                             self.a_params["embed"], self.cfg, x)
+
+    # ---- public decode ---------------------------------------------------------
+
+    def init_cache(self, batch: int, max_len: int):
+        caches = [kvcache.init_attn_cache(self.cfg, batch, max_len,
+                                          self.a_device)
+                  for _ in self.specs]
+        return caches, torch.zeros(batch, dtype=torch.int32,
+                                   device=self.a_device)
+
+    def decode_step(self, tokens: torch.Tensor, caches, pos: torch.Tensor):
+        """One token for one micro-batch. tokens: (B,). The caches are
+        updated in place and returned."""
+        x = embed_tokens(self.a_params["embed"], self.cfg, tokens[:, None],
+                         pos[:, None])
+        new_caches = []
+        for i, spec in enumerate(self.specs):
+            x, nc = self._mixer(self.a_params["layers"][i], x, caches[i], pos)
+            x = self._ffn(i, spec, x)
+            new_caches.append(nc)
+        return self._head(x)[:, 0], new_caches, pos + 1
+
+    def decode_step_3bo(self, micro_batches, n_bo: int = 3):
+        """Drive the micro-batches through the layer loop in the 3BO
+        rotation: per layer, attention for every micro-batch, then every
+        micro-batch's FFN cycle. micro_batches: list of (tokens (B,),
+        caches, pos). Returns the list of (logits, caches, pos)."""
+        states = []
+        for tokens, caches, pos in micro_batches:
+            x = embed_tokens(self.a_params["embed"], self.cfg,
+                             tokens[:, None], pos[:, None])
+            states.append({"x": x, "caches": caches, "new": [], "pos": pos})
+        for i, spec in enumerate(self.specs):
+            lp = self.a_params["layers"][i]
+            for st in states:            # stage 1: A role attention
+                st["x"], nc = self._mixer(lp, st["x"], st["caches"][i],
+                                          st["pos"])
+                st["new"].append(nc)
+            for st in states:            # stage 2: M2N cycles
+                st["x"] = self._ffn(i, spec, st["x"])
+        return [(self._head(st["x"])[:, 0], st["new"], st["pos"] + 1)
+                for st in states]
+
+    # ---- public prefill --------------------------------------------------------
+
+    def _prefill_block(self, tokens, caches, pos):
+        """One chunk (B, C) through the full layer stack — C tokens per
+        M2N cycle instead of 1."""
+        c = tokens.shape[1]
+        x = embed_tokens(self.a_params["embed"], self.cfg, tokens,
+                         pos[:, None] + torch.arange(c, dtype=pos.dtype,
+                                                     device=pos.device))
+        new_caches = []
+        for i, spec in enumerate(self.specs):
+            lp = self.a_params["layers"][i]
+            h = apply_norm(lp["ln1"], self.cfg, x)
+            mix, nc = attn_mod.attention_prefill_cached(
+                lp["attn"], self.cfg, h, caches[i], pos, impl=self.impl)
+            x = self._ffn(i, spec, x + mix)
+            new_caches.append(nc)
+        return self._head(x), new_caches, pos + c
+
+    def prefill(self, tokens: torch.Tensor, caches, pos: torch.Tensor,
+                chunk: Optional[int] = None):
+        """Batched prefill: S tokens per sequence in ceil(S/chunk) M2N
+        cycles per MoE layer. tokens: (B, S); pos: (B,) start positions.
+        On the plain path the logits and caches are bit-exact against
+        token-by-token ``decode_step`` teacher forcing.
+
+        Returns (logits (B, S, V) float32, caches, pos + S).
+        """
+        s = tokens.shape[1]
+        c = s if chunk is None else max(1, int(chunk))
+        parts = []
+        for off in range(0, s, c):
+            lg, caches, pos = self._prefill_block(tokens[:, off:off + c],
+                                                  caches, pos)
+            parts.append(lg)
+        return torch.cat(parts, dim=1), caches, pos
+
+
+def split_nodes(devices: Sequence, n_a_nodes: int, n_f_nodes: int,
+                devices_per_node: int = 1):
+    """Split a flat device list into A/F roles at node granularity."""
+    need = (n_a_nodes + n_f_nodes) * devices_per_node
+    if len(devices) < need:
+        raise ValueError(f"need {need} devices, have {len(devices)}")
+    a = devices[:n_a_nodes * devices_per_node]
+    f = devices[n_a_nodes * devices_per_node:need]
+    return list(a), list(f)
+

@@ -1,0 +1,293 @@
+"""The port's AFD slice end to end on the CPU: AFDRuntime decode against
+the JAX runtime on JAX's own weights (through the numpy bridge), chunked
+prefill bit-exact against teacher forcing inside the port, the serving
+engine's counters against JAX's on one seeded trace, the import rule, the
+device default and the command line."""
+
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro import configs as jconfigs  # noqa: E402
+from repro.models.model import make_model  # noqa: E402
+from repro.parallel.afd import AFDRuntime as JAFDRuntime  # noqa: E402
+from repro.serving.afd_engine import AFDServeEngine as JEngine  # noqa: E402
+from repro.serving.workload import generate_trace as jtrace  # noqa: E402
+from repro.serving.workload import get_profile as jprofile  # noqa: E402
+from repro_torch import configs as tconfigs  # noqa: E402
+from repro_torch.bridge import params_from_jax  # noqa: E402
+from repro_torch.models.params import init_params  # noqa: E402
+from repro_torch.parallel.afd import AFDRuntime  # noqa: E402
+from repro_torch.serving.afd_engine import AFDServeEngine  # noqa: E402
+from repro_torch.serving.workload import generate_trace, get_profile  # noqa: E402
+
+SRC = os.path.join(os.path.dirname(__file__), "..", "src")
+
+
+def _numpy_tree(tree):
+    """JAX pytree → the same nesting of float32 numpy arrays (bf16 leaves
+    become f32, which torch.from_numpy accepts)."""
+    return jax.tree_util.tree_map(
+        lambda x: np.asarray(x, np.float32)
+        if jnp.issubdtype(x.dtype, jnp.floating) else np.asarray(x), tree)
+
+
+@pytest.fixture(scope="module")
+def jax_setups():
+    out = {}
+    for arch in ("granite-moe-1b-a400m", "kimi-k2-1t-a32b"):
+        jcfg = jconfigs.get_smoke_config(arch)
+        params = make_model(jcfg).init(jax.random.PRNGKey(0))
+        tcfg = tconfigs.get_smoke_config(arch)
+        out[arch] = (jcfg, params, tcfg,
+                     params_from_jax(tcfg, _numpy_tree(params), "cpu"))
+    return out
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "kimi-k2-1t-a32b"])
+def test_afd_decode_matches_jax(jax_setups, arch):
+    jcfg, jparams, tcfg, tparams = jax_setups[arch]
+    B, S = 2, 6
+    toks = np.random.default_rng(1).integers(0, tcfg.vocab_size, (B, S))
+    devs = jax.devices()
+    jrt = JAFDRuntime(jcfg, jparams, [devs[0]], [devs[-1]])
+    jc, jpos = jrt.init_cache(B, S + 2)
+    rt = AFDRuntime(tcfg, tparams, device="cpu")
+    tc, tpos = rt.init_cache(B, S + 2)
+    for t in range(S):
+        want, jc, jpos = jrt.decode_step(jnp.asarray(toks[:, t], jnp.int32),
+                                         jc, jpos)
+        got, tc, tpos = rt.decode_step(torch.from_numpy(toks[:, t]), tc, tpos)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4)
+    assert rt.stats.dispatches > 0
+    per = rt.stats.dispatch_bytes / rt.stats.dispatches
+    assert per == B * tcfg.d_model * 4 + B * tcfg.top_k * 8
+    assert (rt.stats.dispatch_bytes, rt.stats.combine_bytes) == (
+        jrt.stats.dispatch_bytes, jrt.stats.combine_bytes)
+
+
+def test_bridge_bf16_round_trip_is_exact():
+    """bf16 JAX weights → float32 numpy → the bridge's bf16 tensors are the
+    same bits (the router stays float32, as in the JAX model)."""
+    import dataclasses
+    jcfg = dataclasses.replace(jconfigs.get_smoke_config(
+        "granite-moe-1b-a400m"), dtype="bfloat16", param_dtype="bfloat16")
+    tcfg = dataclasses.replace(tconfigs.get_smoke_config(
+        "granite-moe-1b-a400m"), dtype="bfloat16", param_dtype="bfloat16")
+    jp = make_model(jcfg).init(jax.random.PRNGKey(0))
+    tp = params_from_jax(tcfg, _numpy_tree(jp), "cpu")
+    want = jax.tree_util.tree_map(
+        lambda x: x[1], jp["decoder"]["stack"][0])       # layer 1 of 2
+    got = tp["layers"][1]
+    assert got["moe"]["router"].dtype == torch.float32
+    assert got["attn"]["wq"].dtype == torch.bfloat16
+    for path in (("attn", "wq"), ("moe", "wi"), ("moe", "router"),
+                 ("ln1", "scale")):
+        w, t = want[path[0]][path[1]], got[path[0]][path[1]]
+        assert np.array_equal(np.asarray(w, np.float32), t.float().numpy())
+
+
+@pytest.fixture(scope="module")
+def port_runtime():
+    cfg = tconfigs.get_smoke_config("granite-moe-1b-a400m")
+    return AFDRuntime(cfg, init_params(cfg, seed=0, device="cpu"),
+                      device="cpu")
+
+
+@pytest.mark.parametrize("chunk", [1, 3, 7, None])
+def test_prefill_bit_exact_vs_teacher_forcing(port_runtime, chunk):
+    rt = port_runtime
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        1, rt.cfg.vocab_size, size=(2, 7)).astype(np.int32))
+    caches, pos = rt.init_cache(2, 16)
+    ref = []
+    for j in range(tokens.shape[1]):
+        lg, caches, pos = rt.decode_step(tokens[:, j], caches, pos)
+        ref.append(lg)
+    ref_lg = torch.stack(ref, dim=1)
+    c2, p2 = rt.init_cache(2, 16)
+    lg, c2, p2 = rt.prefill(tokens, c2, p2, chunk=chunk)
+    assert torch.equal(lg, ref_lg)
+    assert torch.equal(p2, pos)
+    for got, want in zip(c2, caches):
+        for name in ("k", "v"):
+            assert torch.equal(got[name], want[name]), name
+
+
+@pytest.mark.parametrize("chunk", [None, 64], ids=["legacy", "chunked"])
+def test_engine_matches_jax(jax_setups, chunk):
+    """The same seeded poisson-burst trace through both engines: equal
+    counters, bytes and greedy outputs."""
+    jcfg, jparams, tcfg, tparams = jax_setups["granite-moe-1b-a400m"]
+    kw = dict(max_len=32, n_bo=2, mb_slots=2, tick_seconds=0.01,
+              prefill_chunk=chunk)
+    devs = jax.devices()
+    jeng = JEngine(JAFDRuntime(jcfg, jparams, [devs[0]], [devs[-1]]), **kw)
+    jeng.run(jtrace(jprofile("poisson-burst"), seed=0, max_requests=10),
+             max_ticks=2000)
+    eng = AFDServeEngine(AFDRuntime(tcfg, tparams, device="cpu"), **kw)
+    eng.run(generate_trace(get_profile("poisson-burst"), seed=0,
+                           max_requests=10), max_ticks=2000)
+    got, want = eng.summary(), jeng.summary()
+    for key in ("completed", "decode_ticks", "engine_ticks",
+                "prefill_chunks", "dispatch_bytes", "combine_bytes",
+                "bytes_match_all"):
+        assert got[key] == want[key], key
+    assert got["completed"] == 10 and got["bytes_match_all"]
+    assert all(w.bytes_match for w in eng.windows)
+    assert eng.predicted_wire_bytes() == jeng.predicted_wire_bytes() == (
+        got["dispatch_bytes"], got["combine_bytes"])
+    outs = {r.rid: r.output for r in eng.completed}
+    assert outs == {r.rid: r.output for r in jeng.completed}
+
+
+def test_engine_kv_budget_caps_admission(port_runtime):
+    """A budget below one request's KV reservation admits one request at a
+    time (an empty batch always admits), so every request still completes
+    but the trace takes more decode ticks than under the default budget."""
+    trace = generate_trace(get_profile("poisson-burst"), seed=0,
+                           max_requests=6)
+    ticks = []
+    for budget in (None, 1):
+        eng = AFDServeEngine(port_runtime, max_len=32, n_bo=2, mb_slots=2,
+                             tick_seconds=0.01, kv_budget_bytes=budget)
+        live = []
+        orig = eng._admit
+
+        def admit():
+            orig()
+            live.append(eng.live_count())
+        eng._admit = admit
+        eng.run(trace)
+        assert eng.summary()["completed"] == 6
+        ticks.append(eng.stats.decode_ticks)
+    assert max(live) == 1 and ticks[1] > ticks[0]
+
+
+def test_engine_helpers_match_jax():
+    """failure_drain_count and splice_batch_slot (whole-slot and token-slab
+    writes, including the n_slots == 1 case) against the JAX helpers."""
+    from repro.serving import engine as jeng
+    from repro_torch.serving import engine as teng
+    for frac, n in ((0.0, 4), (0.25, 4), (0.3, 4), (1.0, 3), (0.5, 1)):
+        assert teng.failure_drain_count(frac, n) == \
+            jeng.failure_drain_count(frac, n)
+    rng = np.random.default_rng(5)
+    for n_slots, t_src, t_off in ((3, 8, 0), (3, 5, 2), (1, 8, 0), (1, 3, 4)):
+        dst = rng.standard_normal((n_slots, 8, 2, 4)).astype(np.float32)
+        src = rng.standard_normal((1, t_src, 2, 4)).astype(np.float32)
+        want = jeng.splice_batch_slot({"k": jnp.asarray(dst)},
+                                      {"k": jnp.asarray(src)}, n_slots - 1,
+                                      n_slots, t_offset=t_off)
+        got = teng.splice_batch_slot({"k": torch.from_numpy(dst.copy())},
+                                     {"k": torch.from_numpy(src)},
+                                     n_slots - 1, n_slots, t_offset=t_off)
+        assert np.array_equal(got["k"].numpy(), np.asarray(want["k"]))
+        assert not np.array_equal(got["k"].numpy(), dst)   # not a no-op
+
+
+def test_split_nodes():
+    from repro.parallel.afd import split_nodes as jsplit
+    from repro_torch.parallel.afd import split_nodes
+    devs = list(range(6))
+    assert split_nodes(devs, 1, 2, 2) == jsplit(devs, 1, 2, 2)
+    with pytest.raises(ValueError):
+        split_nodes(devs, 2, 2, 2)
+
+
+def test_port_imports_no_jax_and_no_repro():
+    code = (
+        "import sys, pkgutil, importlib, repro_torch\n"
+        "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = sorted(n for n in sys.modules if n == 'jax' or "
+        "n.startswith('jax.') or n.startswith('jaxlib') or n == 'repro' "
+        "or n.startswith('repro.'))\n"
+        "print(len([n for n in sys.modules if n.startswith('repro_torch')]))\n"
+        "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=SRC)
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert int(res.stdout.split()[-1]) >= 20      # every submodule imported
+
+
+def test_runtime_defaults_to_cuda():
+    """device=None means the card; without one it raises rather than
+    carrying on on the CPU."""
+    cfg = tconfigs.get_smoke_config("granite-moe-1b-a400m")
+    params = init_params(cfg, seed=0, device="cpu")
+    if torch.cuda.is_available():
+        assert AFDRuntime(cfg, params).a_device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            AFDRuntime(cfg, params)
+
+
+@pytest.mark.parametrize("change,error", [
+    (dict(n_experts=0, top_k=0, d_ff=64), ValueError),          # dense
+    (dict(ssm_state=16, attn_layer_period=2), NotImplementedError),  # Mamba
+], ids=["dense", "mamba"])
+def test_runtime_refuses_unported_configs(change, error):
+    import dataclasses
+    cfg = dataclasses.replace(
+        tconfigs.get_smoke_config("granite-moe-1b-a400m"), **change)
+    with pytest.raises(error):
+        AFDRuntime(cfg, {}, device="cpu")
+
+
+def test_cli_serve_traffic_cpu():
+    env = dict(os.environ, PYTHONPATH=SRC)
+    for extra in ([], ["--sample", "--prefill-chunk", "3"]):
+        res = subprocess.run(
+            [sys.executable, "-m", "repro_torch", "serve-traffic",
+             "--device", "cpu", "--max-requests", "4", "--json", "-",
+             *extra], env=env, capture_output=True, text=True, timeout=300)
+        assert res.returncode == 0, res.stderr
+        summary = json.loads(res.stdout)["summary"]
+        assert summary["bytes_match_all"] and summary["completed"] == 4
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+def test_cuda_runtime_matches_plain_path(cuda):
+    """The AFD runtime on the card (kernels) against the same runtime with
+    impl="plain", float32 smoke config: one 5-token prefill chunk, then 3
+    decode steps. Online softmax and FMA order differ from the plain
+    versions, so the logits agree to float32 rounding, not bitwise."""
+    from repro_torch.kernels import ops
+    cfg = tconfigs.get_smoke_config("granite-moe-1b-a400m")
+    params = init_params(cfg, seed=0, device=cuda)
+    toks = torch.randint(1, cfg.vocab_size, (2, 8),
+                         generator=torch.Generator().manual_seed(0))
+    toks = toks.to(torch.int32).to(cuda)
+    outs = []
+    ops.reset_launch_counts()
+    for impl in (None, "plain"):
+        rt = AFDRuntime(cfg, params, impl=impl)
+        caches, pos = rt.init_cache(2, 16)
+        lg, caches, pos = rt.prefill(toks[:, :5], caches, pos)
+        steps = [lg]
+        for j in range(5, 8):
+            out, caches, pos = rt.decode_step(toks[:, j], caches, pos)
+            steps.append(out[:, None])
+        outs.append(torch.cat(steps, dim=1))
+    assert all(n > 0 for n in ops.launch_counts().values())
+    np.testing.assert_allclose(outs[0].cpu().numpy(), outs[1].cpu().numpy(),
+                               atol=1e-4)
