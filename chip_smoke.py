@@ -13,15 +13,28 @@ Phases, each of which fails the run by raising:
 3. Each kernel against its plain PyTorch version at the main path's shapes,
    in bf16 and f32, with its time beside its bound, the plain version's
    time and one PyTorch library call's time (CUDA events, L2 flushed, no
-   host gaps inside the timed call).
+   host gaps inside the timed call). The dense grouped GEMM, flash prefill
+   and split-KV come first, on one seeded generator. Then the grouped GEMM's
+   int8 and int4 weight modes (weights quantized on the card from seeded
+   bf16 weights by the port's helpers; the serving path never runs them,
+   so their launches are those of their checks), and both attention
+   kernels on rows with no live key (``lengths`` holding 0, a chunk with
+   ``t_valid = 0``), each on a generator of its own.
 4. Full-width serve: granite-moe-1b-a400m (24 layers, bf16, random weights
    from seed 0) through ``AFDRuntime`` + ``AFDServeEngine`` on a 24-request
-   seeded trace with chunked prefill, on the wall clock. Every request must
-   complete, measured M2N bytes must equal the Eq. 9/17 prediction, and
-   each kernel's launch count over this run must be > 0.
+   seeded trace with chunked prefill, on the wall clock, with no policy
+   loop. Every request must complete, measured M2N bytes must equal the
+   Eq. 9/17 prediction, and each kernel's launch count over this run must
+   equal one launch per layer of every cycle.
 5. Path check at full width: one 64-token prefill chunk and 4 decode steps
    through the kernels and through the plain versions; the logits must
    agree within the bf16 tolerance stated below.
+6. The §3.3 policy loop on the card: the same model served on the wall
+   clock with an EP-mode ``SLOScheduler`` (TPOT SLO 50 ms) and an
+   ``HFUProbe`` on the AFD plan for the H100 entry of ``core.hardware``.
+   Every request must complete, bytes must match in every window, every
+   window must carry σ, α, a live cap ≥ 1 and the HFU fields, and measured
+   HFU must stay at or under the plan's prediction.
 
 With ``--profile`` a last phase times 12 steady engine ticks (16
 sequences, prefill chunks interleaved with decode), traces the same ticks
@@ -63,9 +76,15 @@ PATH_REL_TOL = 5e-2
 
 REPLACES = {
     "grouped_gemm": "src/repro/kernels/grouped_gemm.py:151",
+    "grouped_gemm_int8": "src/repro/kernels/grouped_gemm.py:151 (int8 mode)",
+    "grouped_gemm_int4": "src/repro/kernels/grouped_gemm.py:151 (int4 mode)",
     "flash_prefill": "src/repro/kernels/flash_prefill.py:87",
     "splitkv_attention": "src/repro/kernels/splitkv_attention.py:79",
 }
+SOURCES = {"grouped_gemm_int8": "grouped_gemm", "grouped_gemm_int4": "grouped_gemm"}
+# the kernels of the serving path (the quantized modes are not on it)
+PATH_KERNELS = ("grouped_gemm", "flash_prefill", "splitkv_attention")
+INT4_BLOCK_N = 128
 
 
 def log(*args) -> None:
@@ -136,6 +155,12 @@ def check_close(name, got, want, atol, rtol=1e-2) -> float:
 # ---------------------------------------------------------------------------
 # Phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
+
+def seeded(torch, seed: int):
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    return gen
+
 
 def routing(torch, tokens: int, n_experts: int, top_k: int, gen):
     """Top-k expert ids of ``tokens`` tokens under a random router, and the
@@ -239,6 +264,155 @@ def kernel_grouped_gemm(torch, timer, cfg, gen):
                                "plain_ms": plain_ms, "bound_ms": b_ms,
                                "bound_by": b_by, "library_ms": library_ms}
     return rows[("decode", "gate|up")]
+
+
+def quantize(torch, mode, w):
+    """Port helpers, on the card: int8 per expert, or int4 packed two per
+    byte along K with one scale per (expert, 128-column block)."""
+    from repro_torch.kernels import quant
+    if mode == "int8":
+        return quant.quantize_experts(w)
+    return quant.quantize_experts_int4(w, block_n=INT4_BLOCK_N)
+
+
+def kernel_grouped_gemm_quant(torch, timer, cfg, gen, mode):
+    """One weight mode against its plain version (dequantize to f32, then
+    the plain fused grouped GEMM) at the main path's expert shapes, in bf16
+    and f32 activations, fused == unfused bit for bit in f32; then its
+    time in bf16 beside its bound. There is no one PyTorch call that takes
+    these grouped int8 / nibble-packed int4 weights with their scales, so
+    ``library_ms`` is null; the dense bf16 ``torch._grouped_mm`` time of
+    the same shape is printed beside it as context. Returns the record row
+    and the kernel's launches over the checks (counts reset just before
+    them, read just after, before the timing)."""
+    from repro_torch.kernels import ops
+    E, D, Fd, k = cfg.n_experts, cfg.d_model, cfg.moe_d_ff, cfg.top_k
+    tol = {torch.float32: lambda kk: 2e-5 * kk,
+           torch.bfloat16: lambda kk: 0.15 * math.sqrt(kk)}
+    w_bytes = 1.0 if mode == "int8" else 0.5
+    worst = 0.0
+    wts = {}
+    for part, (kk, nn) in (("gate|up", (D, 2 * Fd)), ("down", (Fd, D))):
+        w = torch.randn((E, kk, nn), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        wts[part] = (w, *quantize(torch, mode, w))
+
+    def operands(tokens, part, dt):
+        sort_idx, sizes = routing(torch, tokens, E, k, gen)
+        m = tokens * k
+        w, codes, scales = wts[part]
+        if part == "gate|up":
+            x = torch.randn((tokens, w.shape[1]), generator=gen,
+                            device="cuda").to(dt)
+            return x, codes, scales, sizes, dict(row_index=sort_idx // k)
+        x = torch.randn((m, w.shape[1]), generator=gen, device="cuda").to(dt)
+        return x, codes, scales, sizes, dict(out_index=sort_idx, out_rows=m)
+
+    shapes = (("decode", 8, "gate|up"), ("decode", 8, "down"),
+              ("prefill", 64, "gate|up"))
+    ops.reset_launch_counts()
+    for dt in (torch.bfloat16, torch.float32):
+        for label, tokens, part in shapes:
+            x, codes, scales, sizes, kw = operands(tokens, part, dt)
+            got = ops.grouped_gemm(x, codes, sizes, scales=scales, **kw)
+            want = ops.grouped_gemm(x, codes, sizes, scales=scales,
+                                    impl="plain", **kw)
+            if got.dtype != dt:
+                raise AssertionError(f"{mode} output dtype {got.dtype}")
+            err = check_close(f"grouped_gemm_{mode} {label} {part} {dt}",
+                              got, want, tol[dt](x.shape[1]))
+            if dt == torch.bfloat16:
+                worst = max(worst, err)
+    # empty groups and rows past sum(group_sizes); fused == unfused in f32
+    _, codes, scales = wts["gate|up"]
+    sizes = torch.tensor([0, 17, 0, 0, 30, 1] + [0] * (E - 6),
+                         dtype=torch.int32, device="cuda")
+    x = torch.randn((64, D), generator=gen, device="cuda")
+    got = ops.grouped_gemm(x, codes, sizes, scales=scales)
+    check_close(f"grouped_gemm_{mode} empty-groups+surplus f32", got,
+                ops.grouped_gemm(x, codes, sizes, scales=scales,
+                                 impl="plain"), tol[torch.float32](D))
+    if got[48:].abs().max() != 0:
+        raise AssertionError(f"surplus rows of the {mode} GEMM are not 0")
+    sort_idx, sizes = routing(torch, 64, E, k, gen)
+    ri = sort_idx // k
+    fused = ops.grouped_gemm(x, codes, sizes, row_index=ri,
+                             out_index=sort_idx, out_rows=64 * k,
+                             scales=scales)
+    unfused = torch.zeros_like(fused)
+    unfused[sort_idx] = ops.grouped_gemm(x[ri], codes, sizes, scales=scales)
+    if not torch.equal(fused, unfused):
+        raise AssertionError(f"fused {mode} grouped GEMM is not bit-identical"
+                             " to gather -> GEMM -> scatter in f32")
+    log(f"  grouped_gemm_{mode} fused == unfused (f32): bit-identical")
+    counts = ops.launch_counts()
+    checks = 2 * len(shapes) + 3
+    log(f"  grouped_gemm_{mode} check launches: {counts}")
+    if counts != {**{name: 0 for name in counts}, f"grouped_gemm_{mode}": checks}:
+        raise AssertionError(f"the {mode} checks launched {counts}, not "
+                             f"{checks} {mode} kernels alone")
+
+    rows = {}
+    for label, tokens, part in shapes:
+        x, codes, scales, sizes, kw = operands(tokens, part, torch.bfloat16)
+        w = wts[part][0]
+        m = tokens * k
+        kk, nn = w.shape[1], w.shape[2]
+        ms = timer(lambda: ops.grouped_gemm(x, codes, sizes, scales=scales,
+                                            **kw))
+        plain_ms = timer(lambda: ops.grouped_gemm(
+            x, codes, sizes, scales=scales, impl="plain", **kw), iters=5)
+        dense_ms = None
+        if hasattr(torch, "_grouped_mm"):
+            xs = (x[kw["row_index"]].contiguous() if "row_index" in kw
+                  else x)
+            offs = torch.cumsum(sizes, 0).to(torch.int32)
+            dense_ms = timer(lambda: torch._grouped_mm(xs, w, offs=offs))
+        visited = int((sizes > 0).sum())
+        n_scales = 1 if mode == "int8" else nn // INT4_BLOCK_N
+        nbytes = (x.shape[0] * kk * 2 + visited * kk * nn * w_bytes
+                  + visited * n_scales * 4 + m * nn * 2 + m * 4)
+        b_ms, b_by = bound(nbytes, 2 * m * kk * nn, PEAK_BF16_FLOPS)
+        log(f"  grouped_gemm_{mode} {label} {part} bf16 (M={m}, K={kk}, "
+            f"N={nn}, {visited}/{E} experts): kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, library none (dense bf16 _grouped_mm "
+            f"{dense_ms} ms), bound {b_ms:.4f} ms ({b_by})")
+        rows[(label, part)] = {"max_abs_err": worst, "ms": ms,
+                               "plain_ms": plain_ms, "bound_ms": b_ms,
+                               "bound_by": b_by, "library_ms": None}
+    return rows[("decode", "gate|up")], checks
+
+
+def no_live_key_rows(torch, cfg, gen) -> None:
+    """Rows with no live key: a prefill chunk with t_valid = 0, a chunk
+    whose 8-key window holds no live slot, and decode sequences with
+    lengths 0. Kernel and plain version both give the mean of v over the T
+    slots (and an LSE of -1e30)."""
+    from repro_torch.kernels import ops
+    hq, hkv, d, t = cfg.n_heads, cfg.n_kv_heads, cfg.d_head, 1024
+    for dt in (torch.bfloat16, torch.float32):
+        q = torch.randn((2, 64, hq, d), generator=gen, device="cuda").to(dt)
+        kc = torch.randn((2, t, hkv, d), generator=gen, device="cuda").to(dt)
+        vc = torch.randn((2, t, hkv, d), generator=gen, device="cuda").to(dt)
+        for off, tv, win in ((448, 0, None), (600, 300, 8)):
+            kw = dict(q_offset=off, t_valid=tv, window=win)
+            check_close(f"flash_prefill no live key (q_offset={off}, "
+                        f"t_valid={tv}, window={win}) {dt}",
+                        ops.flash_prefill_attention(q, kc, vc, **kw),
+                        ops.flash_prefill_attention(q, kc, vc, impl="plain",
+                                                    **kw),
+                        5e-2 if dt == torch.bfloat16 else 2e-5)
+        lengths = torch.tensor([0, 300], dtype=torch.int32, device="cuda")
+        got, lse = ops.splitkv_attention(q[:, 0], kc, vc, lengths,
+                                         return_lse=True)
+        want, want_lse = ops.splitkv_attention(q[:, 0], kc, vc, lengths,
+                                               return_lse=True, impl="plain")
+        tol = 5e-2 if dt == torch.bfloat16 else 1e-5
+        check_close(f"splitkv lengths [0, 300] out {dt}", got, want, tol)
+        check_close(f"splitkv lengths [0, 300] lse {dt}", lse, want_lse, tol)
+        if not torch.equal(lse[0], want_lse[0]):
+            raise AssertionError("LSE of a sequence with no live key differs "
+                                 "from the plain version's -1e30")
 
 
 def _sdpa_mask(torch, rows, t, t_valid):
@@ -386,20 +560,94 @@ def serve(torch, cfg, params, card):
                              "completed")
     if not s["bytes_match_all"]:
         raise AssertionError("measured M2N bytes diverged from Eq. 9/17")
-    missing = [k for k, v in launches.items() if v <= 0]
+    check_path_launches(launches, s, cfg, eng.n_bo)
+    return launches
+
+
+def check_path_launches(launches, s, cfg, n_bo) -> None:
+    """Every layer of every decode micro-batch and every prefill chunk went
+    through the kernels: one split-KV launch per decode layer, one flash
+    launch per prefill layer, a gate|up + down pair per MoE cycle; and no
+    quantized launch (the serving path holds dense weights)."""
+    missing = [k for k in PATH_KERNELS if launches[k] <= 0]
     if missing:
         raise AssertionError(f"main path never launched {missing}")
-    # Every layer of every decode micro-batch and every prefill chunk went
-    # through the kernels: one split-KV launch per decode layer, one flash
-    # launch per prefill layer, a gate|up + down pair per MoE cycle.
     layers = cfg.n_layers
-    decode = s["decode_ticks"] * eng.n_bo * layers
+    decode = s["decode_ticks"] * n_bo * layers
     prefill = s["prefill_chunks"] * layers
     expected = {"grouped_gemm": 2 * (decode + prefill),
+                "grouped_gemm_int8": 0, "grouped_gemm_int4": 0,
                 "flash_prefill": prefill, "splitkv_attention": decode}
     if launches != expected:
         raise AssertionError(f"launch counts {launches} != {expected}")
-    return launches
+
+
+def policy_loop(torch, cfg, params, card) -> None:
+    """Phase 6: the serve of phase 4's model under the §3.3 policy loop,
+    on the wall clock: an EP-mode SLOScheduler at a 50 ms TPOT SLO (its
+    per-tick budget on the wall clock) and an HFUProbe on the AFD plan for
+    the H100 entry of core.hardware (the card this runs on)."""
+    from repro_torch.api.registry import spec_from_arch_config
+    from repro_torch.core.hardware import HARDWARE
+    from repro_torch.core.planner import plan_afd
+    from repro_torch.kernels import ops
+    from repro_torch.parallel.afd import AFDRuntime
+    from repro_torch.serving.afd_engine import AFDServeEngine, HFUProbe
+    from repro_torch.serving.scheduler import SLOConfig, SLOScheduler
+    from repro_torch.serving.workload import (LengthDist, Phase,
+                                              TrafficProfile, generate_trace)
+    spec, hw = spec_from_arch_config(cfg), HARDWARE["H100"]
+    plan = plan_afd(spec, hw)
+    log(f"  AFD plan for {spec.name} on {hw.name}: n_a {plan.n_a}, n_f "
+        f"{plan.n_f}, t_B {plan.t_budget:.6e} s, B_rank {plan.b_rank:.6e}, "
+        f"HFU {plan.hfu:.6e}")
+    profile = TrafficProfile(
+        name="chip-policy", phases=(Phase(2.0, 8.0),),
+        prompt_len=LengthDist(64, 256), output_len=LengthDist(16, 32))
+    trace = generate_trace(profile, seed=1, max_requests=12)
+    eng = AFDServeEngine(
+        AFDRuntime(cfg, params), max_len=1024, n_bo=2, mb_slots=8,
+        prefill_chunk=64, tick_seconds=None,
+        scheduler=SLOScheduler(SLOConfig(tpot=0.05), mode="ep", plan=plan),
+        probe=HFUProbe(model=spec, hardware=hw, plan=plan))
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    eng.run(trace, max_ticks=20_000)
+    eng.rt.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    s = eng.summary()
+    log(f"  {card}: {s['completed']}/{len(trace)} completed, "
+        f"{s['tokens_out']} tokens in {wall:.2f} s wall, decode_ticks "
+        f"{s['decode_ticks']}, engine_ticks {s['engine_ticks']}, "
+        f"{len(eng.windows)} windows; launches {launches}")
+    log("  win ticks live_cap  sigma  straggler  alpha  alpha_other  "
+        "hfu_measured / hfu_predicted  b_rank_util  bytes_ok")
+    for w in eng.windows:
+        log(f"  {w.window:3d} {w.ticks:5d} {w.live_cap:8d}  {w.sigma:.4f}  "
+            f"{w.straggler_rate:9.4f}  {w.alpha:.4f}  {w.alpha_other:11.4f}"
+            f"  {w.hfu_measured:.6e} / {w.hfu_predicted:.6e}  "
+            f"{w.b_rank_utilization:.6e}  {w.bytes_match}")
+    log("  policy_summary " + json.dumps(
+        {**s, "wall_s": wall, "launches": launches,
+         "live_cap": [w.live_cap for w in eng.windows]}, default=float))
+    if s["completed"] != len(trace):
+        raise AssertionError(f"policy loop: only {s['completed']}/"
+                             f"{len(trace)} requests completed")
+    for w in eng.windows:
+        if not w.bytes_match:
+            raise AssertionError(f"window {w.window}: bytes diverged")
+        fields = (w.sigma, w.alpha, w.alpha_other, w.policy_mode,
+                  w.live_cap, w.hfu_measured, w.hfu_predicted,
+                  w.b_rank_utilization)
+        if any(f is None for f in fields) or w.live_cap < 1:
+            raise AssertionError(f"window {w.window} lacks policy or HFU "
+                                 f"fields: {fields}")
+        if w.tokens_routed and w.hfu_measured > w.hfu_predicted + 1e-15:
+            raise AssertionError(f"window {w.window}: measured HFU "
+                                 f"{w.hfu_measured} above the plan's "
+                                 f"{w.hfu_predicted}")
+    check_path_launches(launches, s, cfg, eng.n_bo)
 
 
 def path_check(torch, cfg, params):
@@ -493,7 +741,7 @@ def profile_ticks(torch, cfg, params, n_ticks: int = 12,
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="trace a window of engine ticks after phase 5")
+                    help="trace a window of engine ticks after phase 6")
     args = ap.parse_args()
 
     import torch
@@ -519,13 +767,18 @@ def main() -> int:
                 log(f"  {name}: {line.strip()}")
 
     cfg = get_config("granite-moe-1b-a400m")
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(0)
     timer = Timer(torch)
     log("[3] kernels against their plain versions (main-path shapes)")
+    gen = seeded(torch, 0)
     measured = {"grouped_gemm": kernel_grouped_gemm(torch, timer, cfg, gen),
                 "flash_prefill": kernel_flash_prefill(torch, timer, cfg, gen),
                 "splitkv_attention": kernel_splitkv(torch, timer, cfg, gen)}
+    check_launches = {}
+    for seed, mode in ((2, "int8"), (3, "int4")):
+        name = f"grouped_gemm_{mode}"
+        measured[name], check_launches[name] = kernel_grouped_gemm_quant(
+            torch, timer, cfg, seeded(torch, seed), mode)
+    no_live_key_rows(torch, cfg, seeded(torch, 4))
     del timer
 
     log("[4] full-width serve: granite-moe-1b-a400m, 24 layers, bf16")
@@ -536,13 +789,20 @@ def main() -> int:
 
     log("[5] path check: kernels vs plain versions, full width bf16")
     path_check(torch, cfg, params)
+    log("[6] policy loop: SLO scheduler (EP) + HFU probe on the H100 plan")
+    policy_loop(torch, cfg, params, card)
     if args.profile:
-        log("[6] profiled window of engine ticks")
+        log("[7] profiled window of engine ticks")
         profile_ticks(torch, cfg, params)
     log(f"done in {time.perf_counter() - t_start:.1f} s")
 
+    # launches: the serve's counts for the serving path's kernels; the
+    # quantized modes, which the serving path never runs, report the
+    # launches of their phase-3 checks
+    launches.update(check_launches)
     kernels = [{"name": name, "route": "cuda",
-                "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+                "source": "src/repro_torch/kernels/csrc/"
+                          f"{SOURCES.get(name, name)}.cu",
                 "replaces": REPLACES[name], "launches": launches[name],
                 **measured[name]} for name in REPLACES]
     print(json.dumps({"kernels": kernels}))

@@ -4,7 +4,9 @@
 lists of numpy arrays (the caller converts; the bridge needs no JAX),
 unstacks ``decoder.prefix`` + ``decoder.stack[j][p]`` with the port's own
 ``LayerPlan`` and returns the per-layer layout of
-``repro_torch.models.params.init_params``.
+``repro_torch.models.params.init_params``. ``quantized_experts_from_jax``
+takes expert weights quantized by the JAX package's helpers (int8, or int4
+packed two per byte) to the grouped GEMM's ``scales=`` operands.
 
 numpy has no bfloat16 of its own: JAX bf16 arrays arrive as
 ``ml_dtypes.bfloat16``, which ``torch.from_numpy`` rejects, so callers cast
@@ -55,3 +57,13 @@ def params_from_jax(cfg: ArchConfig, tree, device="cuda",
             "lm_head": _to_torch(tree.get("lm_head", {}), device, dtype),
             "final_norm": _to_torch(dec["final_norm"], device, dtype),
             "layers": _to_torch(layers, device, dtype)}
+
+
+def quantized_experts_from_jax(codes, scales, device="cuda"):
+    """Expert weights quantized by ``repro.kernels.grouped_gemm``'s
+    ``quantize_experts`` (int8 codes (G, K, N), scales (G,)) or
+    ``quantize_experts_int4`` (packed (G, K/2, N), scales (G, N/block_n))
+    as the tensors ``ops.grouped_gemm(..., scales=)`` takes: the layout is
+    the same, so codes and scales cross bit for bit."""
+    return (torch.from_numpy(np.array(codes, np.int8)).to(device),
+            torch.from_numpy(np.array(scales, np.float32)).to(device))

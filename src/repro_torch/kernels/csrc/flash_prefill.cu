@@ -8,9 +8,11 @@
 // h / (Hq / Hkv). Query row j sits at absolute position q_offset + j. A key
 // column c is live when c < t_valid, and c <= q_offset + j when causal, and
 // q_offset + j - c < window when a window is given. Scores and the online
-// softmax are float32; the output is acc / max(l, 1e-30), so a row with no
-// live key gives 0 (masked keys get probability exactly 0 here; the TPU
-// kernel and the dense form instead average v over such a row).
+// softmax are float32; the output is acc / l. A row with no live key
+// (l == 0) gives the mean of v over all T cache slots, as the dense form
+// does (every score there is the same -1e30, so softmax is uniform over
+// T); such a row takes its own short pass over T. (The TPU kernel averages
+// over its padded tile range instead.)
 //
 // What bounds it on an H100: in chunked prefill a 64-row chunk reads the
 // whole live cache prefix of its kv head once per q head, and does
@@ -113,12 +115,24 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int r = 0; r < RPW; ++r) {
     const int s = s0 + warp * RPW + r;
     if (s >= s_len) continue;
-    const float inv = 1.f / fmaxf(l[r], 1e-30f);
     T* o = out + (((size_t)b * s_len + s) * hq + h) * D;
+    if (l[r] > 0.f) {
+      const float inv = 1.f / l[r];
 #pragma unroll
-    for (int i = 0; i < DPL; ++i) {
-      const int dd = lane + 32 * i;
-      if (dd < D) o[dd] = from_f32<T>(acc[r][i] * inv);
+      for (int i = 0; i < DPL; ++i) {
+        const int dd = lane + 32 * i;
+        if (dd < D) o[dd] = from_f32<T>(acc[r][i] * inv);
+      }
+    } else {
+      // no live key (l is warp-uniform): the mean of v over all T slots
+      for (int i = 0; i < DPL; ++i) {
+        const int dd = lane + 32 * i;
+        if (dd >= D) continue;
+        float sum = 0.f;
+        for (int t = 0; t < t_len; ++t)
+          sum += to_f32(v[(((size_t)b * t_len + t) * hkv + kvh) * D + dd]);
+        o[dd] = from_f32<T>(sum / (float)t_len);
+      }
     }
   }
 }

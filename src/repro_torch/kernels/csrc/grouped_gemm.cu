@@ -1,7 +1,7 @@
 // Grouped GEMM with a fused router permute, for Hopper (sm_90a).
 //
-// Replaces: src/repro/kernels/grouped_gemm.py::grouped_gemm_pallas (the
-// dense f32/bf16 path with row_index / out_index; not the int8/int4 paths).
+// Replaces: src/repro/kernels/grouped_gemm.py::grouped_gemm_pallas, all
+// three weight modes, with row_index / out_index.
 //
 // Computes out[out_index[r]] = lhs[row_index[r]] @ rhs[group(r)] for GEMM
 // rows r sorted by group (group g owns rows [offsets[g], offsets[g+1])),
@@ -9,6 +9,16 @@
 // out_index it lands in out[r]. The caller zero-fills `out`, so rows no GEMM
 // row targets, and rows past sum(group_sizes), stay 0. Empty groups are
 // allowed.
+//
+// Weight modes (template parameter W): dense, rhs (G, K, N) of lhs's type;
+// int8, rhs (G, K, N) codes with one float32 scale per expert; int4, rhs
+// (G, K/2, N) bytes whose low nibble holds row 2p and high nibble row 2p+1,
+// sign-extended by ((x & 0xF) ^ 8) - 8, with one float32 scale per (expert,
+// block of block_n columns). A quantized tile is dequantised as it is
+// staged in shared memory, as the TPU kernel does in VMEM: the product is
+// to_f32(x) * (float(code) * scale) in float32. Only the weight-tile load
+// differs between modes; int8 moves 1 and int4 0.5 weight bytes per
+// parameter against 2 (bf16) or 4 (f32).
 //
 // What bounds it on an H100: at decode the rows are few (8 sequences x top-8
 // = 64 rows over 32 experts, about 2 per expert) and the work is reading the
@@ -36,13 +46,28 @@ constexpr int TN = 64;        // output columns per block
 constexpr int TK = 64;        // reduction depth per shared-memory stage
 constexpr int THREADS = 256;  // 16 column groups of 4 x 16 rows
 
-template <typename T>
+// weight modes, shared with the Python wrapper
+constexpr int W_DENSE = 0;
+constexpr int W_INT8 = 1;
+constexpr int W_INT4 = 2;
+
+// 16 consecutive int8 codes (one 16-byte load), sign-extended to int.
+__device__ __forceinline__ void load16_codes(const int8_t* p, int* o) {
+  const int4 u = *reinterpret_cast<const int4*>(p);
+  const int8_t* b = reinterpret_cast<const int8_t*>(&u);
+#pragma unroll
+  for (int j = 0; j < 16; ++j) o[j] = b[j];
+}
+
+template <typename T, int W>
 __global__ void __launch_bounds__(THREADS)
-grouped_gemm_kernel(const T* __restrict__ lhs, const T* __restrict__ rhs,
+grouped_gemm_kernel(const T* __restrict__ lhs, const void* __restrict__ rhs,
+                    const float* __restrict__ scales,
                     const int* __restrict__ offsets,
                     const int* __restrict__ row_index,
                     const int* __restrict__ out_index, T* __restrict__ out,
-                    int m, int k_dim, int n_dim, int lhs_rows, int out_rows) {
+                    int m, int k_dim, int n_dim, int lhs_rows, int out_rows,
+                    int block_n) {
   const int g = blockIdx.x;
   const int n0 = blockIdx.y * TN;
   const int lo = min(offsets[g], m);
@@ -54,7 +79,11 @@ grouped_gemm_kernel(const T* __restrict__ lhs, const T* __restrict__ rhs,
   const int tid = threadIdx.x;
   const int tx = tid % 16;  // owns columns n0 + 4*tx .. +3
   const int ty = tid / 16;  // owns row r0 + ty
-  const T* w = rhs + (size_t)g * k_dim * n_dim;
+  // expert g's weights: k_dim rows (dense, int8) or k_dim / 2 packed rows
+  const size_t w_rows = W == W_INT4 ? k_dim / 2 : k_dim;
+  const T* w = static_cast<const T*>(rhs) + (size_t)g * w_rows * n_dim;
+  const int8_t* wq = static_cast<const int8_t*>(rhs) + (size_t)g * w_rows * n_dim;
+  const int n_blocks = W == W_INT4 ? n_dim / block_n : 1;
 
   for (int r0 = lo; r0 < hi; r0 += TM) {
     float acc[4] = {0.f, 0.f, 0.f, 0.f};
@@ -69,18 +98,58 @@ grouped_gemm_kernel(const T* __restrict__ lhs, const T* __restrict__ rhs,
         }
         a_s[kk][rr] = a;
       }
-      for (int i = tid; i < TK * (TN / 8); i += THREADS) {
-        const int kk = i / (TN / 8), c8 = (i % (TN / 8)) * 8;
-        const int k = k0 + kk, n = n0 + c8;
-        float v[8];
-        if (k < k_dim && n < n_dim) {
-          load8(w + (size_t)k * n_dim + n, v);
-        } else {
+      if constexpr (W == W_DENSE) {
+        for (int i = tid; i < TK * (TN / 8); i += THREADS) {
+          const int kk = i / (TN / 8), c8 = (i % (TN / 8)) * 8;
+          const int k = k0 + kk, n = n0 + c8;
+          float v[8];
+          if (k < k_dim && n < n_dim) {
+            load8(w + (size_t)k * n_dim + n, v);
+          } else {
 #pragma unroll
-          for (int j = 0; j < 8; ++j) v[j] = 0.f;
+            for (int j = 0; j < 8; ++j) v[j] = 0.f;
+          }
+#pragma unroll
+          for (int j = 0; j < 8; ++j) b_s[kk][c8 + j] = v[j];
         }
+      } else if constexpr (W == W_INT8) {
+        // 16 codes per 16-byte load, each times the expert's scale
+        const float sc = scales[g];
+        for (int i = tid; i < TK * (TN / 16); i += THREADS) {
+          const int kk = i / (TN / 16), c16 = (i % (TN / 16)) * 16;
+          const int k = k0 + kk, n = n0 + c16;
+          int c[16];
+          if (k < k_dim && n < n_dim) {
+            load16_codes(wq + (size_t)k * n_dim + n, c);
+          } else {
 #pragma unroll
-        for (int j = 0; j < 8; ++j) b_s[kk][c8 + j] = v[j];
+            for (int j = 0; j < 16; ++j) c[j] = 0;
+          }
+#pragma unroll
+          for (int j = 0; j < 16; ++j) b_s[kk][c16 + j] = (float)c[j] * sc;
+        }
+      } else {
+        // packed row p of the tile holds K rows k0 + 2p (low nibble) and
+        // k0 + 2p + 1 (high nibble); K is even, so both or neither exist
+        for (int i = tid; i < (TK / 2) * (TN / 16); i += THREADS) {
+          const int p = i / (TN / 16), c16 = (i % (TN / 16)) * 16;
+          const int k = k0 + 2 * p, n = n0 + c16;
+          int c[16];
+          if (k < k_dim && n < n_dim) {
+            load16_codes(wq + (size_t)(k / 2) * n_dim + n, c);
+          } else {
+#pragma unroll
+            for (int j = 0; j < 16; ++j) c[j] = 0;
+          }
+#pragma unroll
+          for (int j = 0; j < 16; ++j) {
+            const int x = c[j] & 0xFF;
+            const float sc = n < n_dim
+                ? scales[(size_t)g * n_blocks + (n + j) / block_n] : 0.f;
+            b_s[2 * p][c16 + j] = (float)(((x & 0xF) ^ 8) - 8) * sc;
+            b_s[2 * p + 1][c16 + j] = (float)((((x >> 4) & 0xF) ^ 8) - 8) * sc;
+          }
+        }
       }
       __syncthreads();
 #pragma unroll 16
@@ -109,37 +178,57 @@ grouped_gemm_kernel(const T* __restrict__ lhs, const T* __restrict__ rhs,
   }
 }
 
-template <typename T>
-void launch(const void* lhs, const void* rhs, const int* offsets,
-            const int* row_index, const int* out_index, void* out, int m,
-            int k_dim, int n_dim, int groups, int lhs_rows, int out_rows,
-            cudaStream_t stream) {
+template <typename T, int W>
+void launch(const void* lhs, const void* rhs, const float* scales,
+            const int* offsets, const int* row_index, const int* out_index,
+            void* out, int m, int k_dim, int n_dim, int groups, int lhs_rows,
+            int out_rows, int block_n, cudaStream_t stream) {
   const dim3 grid(groups, (n_dim + TN - 1) / TN);
-  grouped_gemm_kernel<T><<<grid, THREADS, 0, stream>>>(
-      static_cast<const T*>(lhs), static_cast<const T*>(rhs), offsets,
-      row_index, out_index, static_cast<T*>(out), m, k_dim, n_dim, lhs_rows,
-      out_rows);
+  grouped_gemm_kernel<T, W><<<grid, THREADS, 0, stream>>>(
+      static_cast<const T*>(lhs), rhs, scales, offsets, row_index, out_index,
+      static_cast<T*>(out), m, k_dim, n_dim, lhs_rows, out_rows, block_n);
+}
+
+template <typename T>
+int launch_w(int wmode, const void* lhs, const void* rhs, const float* scales,
+             const int* offsets, const int* row_index, const int* out_index,
+             void* out, int m, int k_dim, int n_dim, int groups, int lhs_rows,
+             int out_rows, int block_n, cudaStream_t s) {
+  switch (wmode) {
+    case W_DENSE: launch<T, W_DENSE>(lhs, rhs, scales, offsets, row_index, out_index, out, m, k_dim, n_dim, groups, lhs_rows, out_rows, block_n, s); break;
+    case W_INT8: launch<T, W_INT8>(lhs, rhs, scales, offsets, row_index, out_index, out, m, k_dim, n_dim, groups, lhs_rows, out_rows, block_n, s); break;
+    case W_INT4: launch<T, W_INT4>(lhs, rhs, scales, offsets, row_index, out_index, out, m, k_dim, n_dim, groups, lhs_rows, out_rows, block_n, s); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return 0;
 }
 
 }  // namespace
 
+// rhs: dense (groups, k_dim, n_dim) of lhs's dtype, or int8 codes
+// (groups, k_dim, n_dim) with scales (groups,) (wmode 1), or packed int4
+// (groups, k_dim / 2, n_dim) with scales (groups, n_dim / block_n) (wmode 2);
+// scales may be NULL for dense. Quantized modes need n_dim % 16 == 0.
 // offsets: (groups + 1,) int32 exclusive cumsum of the group sizes, on the
 // device. row_index / out_index: (m,) int32 or NULL. Returns the CUDA error
 // code of the launch (0 = success).
 extern "C" int rt_grouped_gemm(const void* lhs, const void* rhs,
-                               const int* offsets, const int* row_index,
-                               const int* out_index, void* out, int m,
-                               int k_dim, int n_dim, int groups, int lhs_rows,
-                               int out_rows, int dtype, void* stream) {
+                               const float* scales, const int* offsets,
+                               const int* row_index, const int* out_index,
+                               void* out, int m, int k_dim, int n_dim,
+                               int groups, int lhs_rows, int out_rows,
+                               int dtype, int wmode, int block_n,
+                               void* stream) {
   if (m > 0 && groups > 0 && n_dim > 0) {
+    if (wmode != W_DENSE && (scales == nullptr || n_dim % 16 != 0))
+      return static_cast<int>(cudaErrorInvalidValue);
+    if (wmode == W_INT4 && (k_dim % 2 != 0 || block_n <= 0 || n_dim % block_n != 0))
+      return static_cast<int>(cudaErrorInvalidValue);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (dtype == RT_DTYPE_BF16) {
-      launch<__nv_bfloat16>(lhs, rhs, offsets, row_index, out_index, out, m,
-                            k_dim, n_dim, groups, lhs_rows, out_rows, s);
-    } else {
-      launch<float>(lhs, rhs, offsets, row_index, out_index, out, m, k_dim,
-                    n_dim, groups, lhs_rows, out_rows, s);
-    }
+    const int err = dtype == RT_DTYPE_BF16
+        ? launch_w<__nv_bfloat16>(wmode, lhs, rhs, scales, offsets, row_index, out_index, out, m, k_dim, n_dim, groups, lhs_rows, out_rows, block_n, s)
+        : launch_w<float>(wmode, lhs, rhs, scales, offsets, row_index, out_index, out, m, k_dim, n_dim, groups, lhs_rows, out_rows, block_n, s);
+    if (err) return err;
   }
   return static_cast<int>(cudaGetLastError());
 }

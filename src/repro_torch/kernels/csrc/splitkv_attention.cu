@@ -20,7 +20,11 @@
 // online softmax and writes it to a float32 workspace. Parts past
 // lengths[b] (read on the device) exit at once, so only live bytes move.
 // Pass 2 combines the parts of each (batch, q head) with LSE weights and
-// writes the output and, if asked, the LSE.
+// writes the output and, if asked, the LSE. A sequence with lengths[b] <= 0
+// has no live key: as in the dense form (every score -1e30, softmax uniform
+// over T) its output is the mean of v over all T slots, and its LSE is
+// -1e30 (log-sum-exp of T equal values -1e30 rounds back to -1e30 in
+// float32).
 #include "common.cuh"
 
 namespace {
@@ -138,12 +142,24 @@ template <typename T>
 __global__ void splitkv_combine_kernel(const float* __restrict__ part_acc,
                                        const float* __restrict__ part_ml,
                                        const int* __restrict__ lengths,
+                                       const T* __restrict__ v,
                                        T* __restrict__ out,
                                        float* __restrict__ lse, int t_len,
                                        int hq, int hkv, int d, int n_parts) {
   const int b = blockIdx.y, h = blockIdx.x;
   const int group = hq / hkv, kvh = h / group, gh = h % group;
   const int len = min(max(lengths[b], 0), t_len);
+  if (len == 0) {
+    for (int dd = threadIdx.x; dd < d; dd += blockDim.x) {
+      float sum = 0.f;
+      for (int t = 0; t < t_len; ++t)
+        sum += to_f32(v[(((size_t)b * t_len + t) * hkv + kvh) * d + dd]);
+      out[((size_t)b * hq + h) * d + dd] = from_f32<T>(sum / (float)t_len);
+    }
+    if (lse != nullptr && threadIdx.x == 0)
+      lse[(size_t)b * hq + h] = RT_MASK_VALUE;
+    return;
+  }
   const int used = (len + PART - 1) / PART;
   const size_t base = ((size_t)b * hkv + kvh) * n_parts;
   float m_all = RT_MASK_VALUE;
@@ -160,10 +176,10 @@ __global__ void splitkv_combine_kernel(const float* __restrict__ part_acc,
       const size_t i = (base + p) * group + gh;
       a += part_acc[i * d + dd] * expf(part_ml[i * 2] - m_all);
     }
-    out[((size_t)b * hq + h) * d + dd] = from_f32<T>(l_all > 0.f ? a / l_all : 0.f);
+    out[((size_t)b * hq + h) * d + dd] = from_f32<T>(a / l_all);
   }
   if (lse != nullptr && threadIdx.x == 0)
-    lse[(size_t)b * hq + h] = l_all > 0.f ? m_all + logf(l_all) : RT_MASK_VALUE;
+    lse[(size_t)b * hq + h] = m_all + logf(l_all);
 }
 
 template <typename T, int D>
@@ -177,8 +193,8 @@ void launch(const void* q, const void* k, const void* v, const int* lengths,
       static_cast<const T*>(v), lengths, part_acc, part_ml, t_len, hq, hkv,
       n_parts, scale);
   splitkv_combine_kernel<T><<<dim3(hq, b), 128, 0, stream>>>(
-      part_acc, part_ml, lengths, static_cast<T*>(out), lse, t_len, hq, hkv,
-      D, n_parts);
+      part_acc, part_ml, lengths, static_cast<const T*>(v),
+      static_cast<T*>(out), lse, t_len, hq, hkv, D, n_parts);
 }
 
 template <typename T>

@@ -5,33 +5,55 @@
 with the fused router permute: ``row_index`` (M,) makes GEMM row r read
 ``lhs[row_index[r]]`` and ``out_index`` (M,) sends it to
 ``out[out_index[r]]`` of an ``out_rows``-row output whose other rows are 0.
+
+Weight-only quantization, chosen by ``scales`` as in
+``repro.kernels.grouped_gemm``:
+
+  * ``scales`` (G,)   — int8 codes in ``rhs`` (G, K, N), per-expert scale;
+  * ``scales`` (G, B) — int4 codes packed two per int8 along K in ``rhs``
+    (G, K/2, N), low nibble = even k, one scale per (expert, N-block of
+    N / B columns).
+
+The kernel dequantises each weight tile as it loads it and accumulates in
+float32: ``to_f32(x) · (float(code) · scale)``; the output has lhs's dtype.
+The quantization helpers (``kernels.quant``, re-exported here) use the JAX
+package's layout and rounding, so weights quantized there load unchanged.
+
 On a CPU tensor the wrapper returns the plain version
-(``ref.grouped_gemm_fused_ref``); on a CUDA tensor it launches the kernel
-or raises.
+(``ref.grouped_gemm_fused_ref`` / ``ref.grouped_gemm_quant_ref``); on a
+CUDA tensor it launches the kernel or raises.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels.quant import (  # noqa: F401  (re-exported)
+    dequantize_experts, dequantize_experts_int4, quantize_experts,
+    quantize_experts_int4, unpack_experts_int4)
 
-# Kernel launches since the last reset (the main-path check reads it).
+# Kernel launches since the last reset (the main-path check reads them),
+# one count per weight mode.
 launches = 0
+launches_int8 = 0
+launches_int4 = 0
 
 _FN = None
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# weight modes of csrc/grouped_gemm.cu
+DENSE, INT8, INT4 = 0, 1, 2
 
 
 def _fn():
     global _FN
     if _FN is None:
         fn = _build.load("grouped_gemm").rt_grouped_gemm
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _FN = fn
@@ -44,33 +66,82 @@ def _index(idx: torch.Tensor, m: int, name: str) -> torch.Tensor:
     return idx.to(torch.int32).contiguous()
 
 
+def weight_mode(lhs: torch.Tensor, rhs: torch.Tensor,
+                scales: Optional[torch.Tensor]) -> Tuple[int, int]:
+    """(mode, block_n) of a call, with the JAX kernel's shape errors."""
+    if lhs.ndim != 2 or rhs.ndim != 3:
+        raise ValueError(f"shapes lhs {tuple(lhs.shape)} / rhs "
+                         f"{tuple(rhs.shape)} are not (M, K) / (G, K, N)")
+    k = lhs.shape[1]
+    if scales is None:
+        if rhs.shape[1] != k:
+            raise ValueError(f"shapes lhs {tuple(lhs.shape)} / rhs "
+                             f"{tuple(rhs.shape)} are not (M, K) / (G, K, N)")
+        return DENSE, 0
+    g, _, n = rhs.shape
+    if rhs.dtype != torch.int8:
+        raise TypeError(f"quantized rhs must hold int8 codes, got {rhs.dtype}")
+    if scales.ndim == 1:
+        if scales.shape != (g,) or rhs.shape[1] != k:
+            raise ValueError(f"int8 weights take rhs (G, {k}, N) and scales "
+                             f"(G,), got {tuple(rhs.shape)} and "
+                             f"{tuple(scales.shape)}")
+        return INT8, 0
+    if rhs.shape[1] * 2 != k:
+        raise ValueError(
+            f"int4 rhs packs two codes per byte along K: expected "
+            f"(G, {k}//2, N), got {tuple(rhs.shape)}")
+    n_blocks = scales.shape[1]
+    if scales.shape[0] != g or n_blocks < 1 or n % n_blocks:
+        raise ValueError(
+            f"int4 scales carry {n_blocks} N-blocks but N={n} does not tile "
+            f"into them — quantize with block_n = N / scales.shape[1]")
+    return INT4, n // n_blocks
+
+
+def plain(lhs: torch.Tensor, rhs: torch.Tensor, group_sizes: torch.Tensor,
+          row_index: Optional[torch.Tensor] = None,
+          out_index: Optional[torch.Tensor] = None,
+          out_rows: Optional[int] = None,
+          scales: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The plain PyTorch version of a call, after the kernel's checks."""
+    if weight_mode(lhs, rhs, scales)[0] == DENSE:
+        return _ref.grouped_gemm_fused_ref(lhs, rhs, group_sizes, row_index,
+                                           out_index, out_rows)
+    return _ref.grouped_gemm_quant_ref(lhs, rhs, group_sizes, scales,
+                                       row_index, out_index, out_rows)
+
+
 def grouped_gemm(lhs: torch.Tensor, rhs: torch.Tensor,
                  group_sizes: torch.Tensor,
                  row_index: Optional[torch.Tensor] = None,
                  out_index: Optional[torch.Tensor] = None,
-                 out_rows: Optional[int] = None) -> torch.Tensor:
+                 out_rows: Optional[int] = None,
+                 scales: Optional[torch.Tensor] = None) -> torch.Tensor:
     if not lhs.is_cuda:
-        return _ref.grouped_gemm_fused_ref(lhs, rhs, group_sizes, row_index,
-                                           out_index, out_rows)
-    global launches
-    if lhs.dtype not in _DTYPES or rhs.dtype != lhs.dtype:
+        return plain(lhs, rhs, group_sizes, row_index, out_index, out_rows,
+                     scales)
+    mode, block_n = weight_mode(lhs, rhs, scales)
+    global launches, launches_int8, launches_int4
+    if lhs.dtype not in _DTYPES or (mode == DENSE and rhs.dtype != lhs.dtype):
         raise TypeError(f"grouped_gemm takes f32/bf16 lhs and rhs of one "
-                        f"dtype, got {lhs.dtype} and {rhs.dtype}")
-    if lhs.ndim != 2 or rhs.ndim != 3 or rhs.shape[1] != lhs.shape[1]:
-        raise ValueError(f"shapes lhs {tuple(lhs.shape)} / rhs "
-                         f"{tuple(rhs.shape)} are not (M, K) / (G, K, N)")
-    g, k, n = rhs.shape
+                        f"dtype (or int8 codes with scales), got {lhs.dtype} "
+                        f"and {rhs.dtype}")
+    g, k, n = rhs.shape[0], lhs.shape[1], rhs.shape[2]
     if group_sizes.shape != (g,):
         raise ValueError(f"group_sizes must be ({g},)")
-    if n % 8:
-        raise ValueError(f"N={n} must be a multiple of 8 (16-byte loads)")
-    for t in (lhs, rhs, group_sizes):
+    if n % (8 if mode == DENSE else 16):
+        raise ValueError(f"N={n} must be a multiple of 8 (dense) or 16 "
+                         f"(quantized) for 16-byte loads")
+    operands = (lhs, rhs, group_sizes) + (() if scales is None else (scales,))
+    for t in operands:
         if not t.is_cuda or t.device != lhs.device:
             raise ValueError("all grouped_gemm operands must be on one CUDA device")
     if not (lhs.is_contiguous() and rhs.is_contiguous()):
         raise ValueError("grouped_gemm needs contiguous lhs and rhs")
     if rhs.data_ptr() % 16:
         raise ValueError("rhs must be 16-byte aligned")
+    sc = None if scales is None else scales.to(torch.float32).contiguous()
     m = lhs.shape[0] if row_index is None else row_index.shape[0]
     ri = None if row_index is None else _index(row_index, m, "row_index")
     oi = None if out_index is None else _index(out_index, m, "out_index")
@@ -78,11 +149,17 @@ def grouped_gemm(lhs: torch.Tensor, rhs: torch.Tensor,
     offsets = torch.zeros(g + 1, dtype=torch.int32, device=lhs.device)
     offsets[1:] = torch.cumsum(group_sizes, 0)
     out = torch.zeros((n_out, n), dtype=lhs.dtype, device=lhs.device)
-    err = _fn()(lhs.data_ptr(), rhs.data_ptr(), offsets.data_ptr(),
+    err = _fn()(lhs.data_ptr(), rhs.data_ptr(),
+                None if sc is None else sc.data_ptr(), offsets.data_ptr(),
                 None if ri is None else ri.data_ptr(),
                 None if oi is None else oi.data_ptr(), out.data_ptr(),
-                m, k, n, g, lhs.shape[0], n_out, _DTYPES[lhs.dtype],
-                torch.cuda.current_stream(lhs.device).cuda_stream)
+                m, k, n, g, lhs.shape[0], n_out, _DTYPES[lhs.dtype], mode,
+                block_n, torch.cuda.current_stream(lhs.device).cuda_stream)
     _build.check(err, "grouped_gemm")
-    launches += 1
+    if mode == DENSE:
+        launches += 1
+    elif mode == INT8:
+        launches_int8 += 1
+    else:
+        launches_int4 += 1
     return out

@@ -39,19 +39,24 @@ def grouped_gemm(lhs: torch.Tensor, rhs: torch.Tensor,
                  group_sizes: torch.Tensor, impl: Optional[str] = None,
                  row_index: Optional[torch.Tensor] = None,
                  out_index: Optional[torch.Tensor] = None,
-                 out_rows: Optional[int] = None) -> torch.Tensor:
+                 out_rows: Optional[int] = None,
+                 scales: Optional[torch.Tensor] = None) -> torch.Tensor:
     """out[r] = lhs[r] @ rhs[group_of(r)] for group-sorted rows.
 
     lhs: (M, K); rhs: (G, K, N); group_sizes: (G,) summing to ≤ M
     (surplus rows give zeros). ``row_index``/``out_index``/``out_rows``
     fuse the router permute: row r consumes ``lhs[row_index[r]]`` and
-    lands in ``out[out_index[r]]``.
+    lands in ``out[out_index[r]]``. ``scales`` makes ``rhs`` weight-only
+    quantized: (G,) for int8 codes (G, K, N), (G, N/block_n) for int4
+    codes packed two per byte along K (G, K/2, N); the output then has
+    lhs's dtype.
     """
     if resolve_impl(impl, lhs) == "plain":
-        return _ref.grouped_gemm_fused_ref(lhs, rhs, group_sizes, row_index,
-                                           out_index, out_rows)
+        return _gg.plain(lhs, rhs, group_sizes, row_index, out_index,
+                         out_rows, scales)
     return _gg.grouped_gemm(lhs, rhs, group_sizes, row_index=row_index,
-                            out_index=out_index, out_rows=out_rows)
+                            out_index=out_index, out_rows=out_rows,
+                            scales=scales)
 
 
 def splitkv_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -84,11 +89,16 @@ def flash_prefill_attention(q: torch.Tensor, k: torch.Tensor,
 
 def launch_counts() -> dict:
     """Kernel launches per wrapper since the last ``reset_launch_counts``."""
-    return {"grouped_gemm": _gg.launches, "flash_prefill": _fp.launches,
+    return {"grouped_gemm": _gg.launches,
+            "grouped_gemm_int8": _gg.launches_int8,
+            "grouped_gemm_int4": _gg.launches_int4,
+            "flash_prefill": _fp.launches,
             "splitkv_attention": _skv.launches}
 
 
 def reset_launch_counts() -> None:
     _gg.launches = 0
+    _gg.launches_int8 = 0
+    _gg.launches_int4 = 0
     _fp.launches = 0
     _skv.launches = 0

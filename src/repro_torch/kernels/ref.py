@@ -13,6 +13,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import quant
+
 MASK_VALUE = -1e30
 
 
@@ -55,6 +57,20 @@ def grouped_gemm_fused_ref(lhs: torch.Tensor, rhs: torch.Tensor,
     out = torch.zeros((n_out, y.shape[1]), dtype=y.dtype, device=y.device)
     out[out_index.long()] = y[:out_index.shape[0]]
     return out
+
+
+def grouped_gemm_quant_ref(lhs: torch.Tensor, rhs: torch.Tensor,
+                           group_sizes: torch.Tensor, scales: torch.Tensor,
+                           row_index: Optional[torch.Tensor] = None,
+                           out_index: Optional[torch.Tensor] = None,
+                           out_rows: Optional[int] = None) -> torch.Tensor:
+    """Weight-only quantized grouped GEMM: dequantize the int8 codes
+    (``scales`` (G,)) or packed int4 codes (``scales`` (G, N/block_n)) to
+    float32, then ``grouped_gemm_fused_ref``; the output has lhs's dtype."""
+    w = (quant.dequantize_experts(rhs, scales) if scales.ndim == 1
+         else quant.dequantize_experts_int4(rhs, scales))
+    return grouped_gemm_fused_ref(lhs, w, group_sizes, row_index, out_index,
+                                  out_rows).to(lhs.dtype)
 
 
 def _grouped_scores(q: torch.Tensor, k: torch.Tensor,

@@ -10,14 +10,21 @@ token through the decode path (legacy) or in chunks through
 
 Per window the engine records the SLO metrics (goodput, TTFT p50/p95,
 mean TPOT) and the runtime's measured dispatch/combine bytes beside the
-Eq. 9/17 prediction (``core.planner``); they must match exactly.
+Eq. 9/17 prediction (``core.planner``); they must match exactly. With an
+``HFUProbe`` it also prices the window's routed tokens through the §3.2
+HFU chain (``core.planner.live_hfu``): measured HFU never exceeds the
+plan's Eq. 9 cap.
 
-The clock is virtual and deterministic by default (a fixed tick
-duration); ``tick_seconds=None`` uses the wall clock, synchronising the
-device before each reading.
+The §3.3 policy loop: an ``SLOScheduler`` observes each tick's latency,
+estimates σ, and its per-window decision (EP batch shrink or AFD discrete
+N_A rescale) sets the live-slot cap that throttles admission; decisions
+are recorded in the window stream.
 
-Not ported yet (they wait for the fleet/policy slice): the SLO scheduler,
-the HFU probe, injected tick latencies and the fleet hooks
+The clock is virtual and deterministic by default (a fixed tick duration,
+or an injected latency stream ``tick_latencies``); ``tick_seconds=None``
+uses the wall clock, synchronising the device before each reading.
+
+Not ported yet (they wait for the fleet slice): the fleet hooks
 (``simulate_failure``, ``drain_all``, ``resubmit``).
 """
 
@@ -25,6 +32,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import math
 import time
 from typing import Deque, Dict, List, Optional, Sequence
 
@@ -32,10 +40,12 @@ import numpy as np
 import torch
 
 from repro_torch.core import planner as pln
+from repro_torch.core.hardware import HardwareSpec
+from repro_torch.core.modelspec import MoEModelSpec
 from repro_torch.models.kvcache import attn_cache_len
 from repro_torch.parallel.afd import AFDRuntime
 from repro_torch.serving.engine import PAD, splice_batch_slot
-from repro_torch.serving.scheduler import ChunkedPrefillPolicy
+from repro_torch.serving.scheduler import ChunkedPrefillPolicy, SLOScheduler
 from repro_torch.serving.workload import ArrivalEvent
 
 
@@ -93,6 +103,18 @@ class _MicroBatch:
         return [i for i, r in enumerate(self.slots) if r is not None]
 
 
+@dataclasses.dataclass(frozen=True)
+class HFUProbe:
+    """Binds the live engine to one planner prediction (Eq. 9 / §3.2)."""
+    model: MoEModelSpec
+    hardware: HardwareSpec
+    plan: pln.AFDPlan
+
+    def window(self, tokens_routed: float, window_s: float) -> pln.LiveHFU:
+        return pln.live_hfu(self.model, self.hardware, self.plan,
+                            tokens_routed, window_s)
+
+
 @dataclasses.dataclass
 class WindowRecord:
     """Per-window serving observables (flat, JSON-ready)."""
@@ -122,6 +144,18 @@ class WindowRecord:
     kv_budget_bytes: int = 0
     prefill_tokens: int = 0
     prefill_chunks: int = 0             # M2N prefill cycles per MoE layer
+    # §3.3 policy loop
+    sigma: Optional[float] = None
+    straggler_rate: Optional[float] = None
+    alpha: Optional[float] = None
+    alpha_other: Optional[float] = None
+    policy_mode: Optional[str] = None
+    n_a: Optional[int] = None
+    live_cap: Optional[int] = None
+    # live Eq. 9 / HFU comparison
+    hfu_measured: Optional[float] = None
+    hfu_predicted: Optional[float] = None
+    b_rank_utilization: Optional[float] = None
 
 
 @dataclasses.dataclass
@@ -140,10 +174,13 @@ class AFDServeEngine:
     """Two-role continuous batching over ``n_bo × mb_slots`` sequences."""
 
     def __init__(self, runtime: AFDRuntime, *, max_len: int = 32,
-                 n_bo: int = 2, mb_slots: int = 2, greedy: bool = True,
-                 seed: int = 0, slo_tpot: float = 0.05,
-                 slo_ttft: float = 1.0,
+                 n_bo: int = 2, mb_slots: int = 2,
+                 scheduler: Optional[SLOScheduler] = None,
+                 probe: Optional[HFUProbe] = None,
+                 greedy: bool = True, seed: int = 0,
+                 slo_tpot: float = 0.05, slo_ttft: float = 1.0,
                  tick_seconds: Optional[float] = 0.05,
+                 tick_latencies: Optional[Sequence[float]] = None,
                  window_ticks: int = 8,
                  kv_budget_bytes: Optional[int] = None,
                  prefill_chunk: Optional[int] = None):
@@ -159,11 +196,15 @@ class AFDServeEngine:
         self.n_bo = n_bo
         self.mb_slots = mb_slots
         self.total_slots = n_bo * mb_slots
+        self.scheduler = scheduler
+        self.probe = probe
         self.greedy = greedy
         self.rng = np.random.RandomState(seed)
         self.slo_tpot = slo_tpot
         self.slo_ttft = slo_ttft
         self.tick_seconds = tick_seconds
+        self._latencies = list(tick_latencies) if tick_latencies else None
+        self._lat_i = 0
         self.window_ticks = window_ticks
 
         self.mbs = [self._fresh_mb() for _ in range(n_bo)]
@@ -174,6 +215,8 @@ class AFDServeEngine:
         self.stats = ServeStats()
         self.windows: List[WindowRecord] = []
         self.completed: List[ServeRequest] = []
+        self.decisions: List = []
+        self._live_cap = self.total_slots
 
         self._moe_layers = sum(1 for s in runtime.specs if s.moe)
         self._dtype_bytes = self.cfg.compute_dtype.itemsize
@@ -257,6 +300,10 @@ class AFDServeEngine:
                                self.stats.prefill_tokens)
 
     def _tick_duration(self, wall0: float) -> float:
+        if self._latencies is not None:
+            dt = self._latencies[self._lat_i % len(self._latencies)]
+            self._lat_i += 1
+            return float(dt)
         if self.tick_seconds is not None:
             return self.tick_seconds
         self.rt.synchronize()
@@ -284,7 +331,7 @@ class AFDServeEngine:
         done = self._w_completed
         ttfts = sorted(r.ttft for r in done)
         ok = self._slo_ok(done)
-        self.windows.append(WindowRecord(
+        rec = WindowRecord(
             window=len(self.windows), t_start=self._w_t0, t_end=self.now,
             ticks=self._w_ticks, arrivals=self._w_arrivals,
             admitted=self._w_admitted, completed=len(done),
@@ -309,8 +356,32 @@ class AFDServeEngine:
             kv_budget_bytes=self.kv_budget_bytes,
             prefill_tokens=self._w_prefill_tokens,
             prefill_chunks=self._w_prefill_chunks,
-        ))
+        )
+        if self.scheduler is not None:
+            d = self.scheduler.decide(self._policy_budget())
+            self.decisions.append(d)
+            self._live_cap = max(1, int(math.floor(
+                self.total_slots * d.batch_scale + 1e-9)))
+            rec.sigma = d.sigma
+            rec.straggler_rate = d.straggler_rate
+            rec.alpha = d.alpha
+            rec.alpha_other = d.alpha_other
+            rec.policy_mode = d.mode
+            rec.n_a = d.n_a
+            rec.live_cap = self._live_cap
+        if self.probe is not None and self._moe_layers:
+            lh = self.probe.window(rec.tokens_routed, dur)
+            rec.hfu_measured = lh.hfu_measured
+            rec.hfu_predicted = lh.hfu_predicted
+            rec.b_rank_utilization = lh.utilization
+        self.windows.append(rec)
         self._open_window()
+
+    def _policy_budget(self) -> float:
+        """Per-tick latency budget the §3.3 loop compares p95 against."""
+        if self.tick_seconds is not None:
+            return self.tick_seconds
+        return self.slo_tpot
 
     def _slo_ok(self, done: Sequence[ServeRequest]) -> List[ServeRequest]:
         return [r for r in done
@@ -355,8 +426,10 @@ class AFDServeEngine:
         self._w_prefill_chunks += n
         self.stats.prefill_chunks += n
         first = self._select(logits[0])
-        if self.tick_seconds is not None:
-            self.now += n * self.tick_seconds
+        if self._latencies is not None or self.tick_seconds is not None:
+            base = (self.tick_seconds if self.tick_seconds is not None
+                    else self._latencies[0])
+            self.now += n * base
         else:
             self.now += max(time.perf_counter() - wall0, 1e-9)
         return caches, pos, first
@@ -364,7 +437,7 @@ class AFDServeEngine:
     def _admit(self) -> None:
         for mb_i, mb in enumerate(self.mbs):
             for slot in range(self.mb_slots):
-                if not self.queue or self.live_count() >= self.total_slots:
+                if not self.queue or self.live_count() >= self._live_cap:
                     return
                 if mb.slots[slot] is not None:
                     continue
@@ -486,7 +559,10 @@ class AFDServeEngine:
                 [(self._tokens(mb.tokens), mb.caches, mb.pos)
                  for mb in self.mbs], n_bo=self.n_bo)
 
-        self.now += self._tick_duration(wall0)
+        dt = self._tick_duration(wall0)
+        self.now += dt
+        if self.scheduler is not None:
+            self.scheduler.observe(dt)
 
         if outs is not None:
             for mb, (logits, caches, pos) in zip(self.mbs, outs):
@@ -542,7 +618,7 @@ class AFDServeEngine:
         ttfts = sorted(r.ttft for r in done)
         ok = self._slo_ok(done)
         dur = max(self.now, 1e-12)
-        return {
+        out: Dict[str, object] = {
             "arrivals": self.stats.arrivals,
             "completed": self.stats.completed,
             "decode_ticks": self.stats.decode_ticks,
@@ -569,3 +645,12 @@ class AFDServeEngine:
             "dispatch_bytes": self.rt.stats.dispatch_bytes,
             "combine_bytes": self.rt.stats.combine_bytes,
         }
+        if self.probe is not None and self.windows:
+            busy = [w for w in self.windows if w.tokens_routed]
+            if busy:
+                out["hfu_measured_mean"] = float(np.mean(
+                    [w.hfu_measured for w in busy]))
+                out["hfu_predicted"] = busy[0].hfu_predicted
+                out["b_rank_utilization_mean"] = float(np.mean(
+                    [w.b_rank_utilization for w in busy]))
+        return out
