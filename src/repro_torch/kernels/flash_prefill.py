@@ -3,9 +3,11 @@
     out (B, S, Hq, d) = flash_prefill(q (B, S, Hq, d), k/v (B, T, Hkv, d))
 
 Query row j sits at absolute position ``q_offset + j``; only the first
-``t_valid`` KV slots hold keys. On a CPU tensor the wrapper returns the
-plain version (``ref.flash_prefill_ref``); on a CUDA tensor it launches the
-kernel or raises.
+``t_valid`` KV slots hold keys. bf16 runs on the tensor cores (the q heads
+that share a kv head packed into the rows of one block), float32 on the
+CUDA cores. On a CPU tensor the wrapper returns the plain version
+(``ref.flash_prefill_ref``); on a CUDA tensor it launches the kernel or
+raises.
 """
 
 from __future__ import annotations
@@ -59,6 +61,9 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if not x.is_cuda or x.device != q.device:
             raise ValueError("q, k, v must be on one CUDA device")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if q.dtype == torch.bfloat16 and any(x.data_ptr() % 16 for x in (q, k, v)):
+        raise ValueError("flash_prefill's bf16 kernel copies 16-byte chunks: "
+                         "q, k and v must start on 16-byte boundaries")
     tv = t if t_valid is None else max(0, min(int(t_valid), t))
     out = torch.empty_like(q)
     err = _fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),

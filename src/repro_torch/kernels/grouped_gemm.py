@@ -3,8 +3,9 @@
     out (M, N) = grouped_gemm(lhs (M, K), rhs (G, K, N), group_sizes (G,))
 
 with the fused router permute: ``row_index`` (M,) makes GEMM row r read
-``lhs[row_index[r]]`` and ``out_index`` (M,) sends it to
-``out[out_index[r]]`` of an ``out_rows``-row output whose other rows are 0.
+``lhs[row_index[r]]`` and ``out_index`` (M,) of distinct destinations sends
+it to ``out[out_index[r]]`` of an ``out_rows``-row output whose other rows
+are 0.
 
 Weight-only quantization, chosen by ``scales`` as in
 ``repro.kernels.grouped_gemm``:
@@ -14,8 +15,12 @@ Weight-only quantization, chosen by ``scales`` as in
     (G, K/2, N), low nibble = even k, one scale per (expert, N-block of
     N / B columns).
 
-The kernel dequantises each weight tile as it loads it and accumulates in
-float32: ``to_f32(x) · (float(code) · scale)``; the output has lhs's dtype.
+With bf16 activations the kernel runs on the tensor cores: it copies the
+codes, turns them into bf16 fragments (every int8 and int4 code is exact in
+bf16) and applies the per-column scale in the epilogue, ``scale · Σ x·code``;
+with float32 activations it dequantises each weight tile as it stages it,
+``x · (float(code) · scale)``. Both accumulate in float32; the output has
+lhs's dtype.
 The quantization helpers (``kernels.quant``, re-exported here) use the JAX
 package's layout and rounding, so weights quantized there load unchanged.
 
@@ -53,7 +58,8 @@ def _fn():
     global _FN
     if _FN is None:
         fn = _build.load("grouped_gemm").rt_grouped_gemm
-        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int]
+                       + [ctypes.c_void_p] + [ctypes.c_int] * 9
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _FN = fn
@@ -61,9 +67,13 @@ def _fn():
 
 
 def _index(idx: torch.Tensor, m: int, name: str) -> torch.Tensor:
+    """The index as the kernel reads it: int32 or int64 as given (no
+    conversion launch on the main path's int64 sort order), else int32."""
     if idx.shape != (m,):
         raise ValueError(f"{name} must have shape ({m},), got {tuple(idx.shape)}")
-    return idx.to(torch.int32).contiguous()
+    if idx.dtype not in (torch.int32, torch.int64):
+        idx = idx.to(torch.int32)
+    return idx.contiguous()
 
 
 def weight_mode(lhs: torch.Tensor, rhs: torch.Tensor,
@@ -146,13 +156,21 @@ def grouped_gemm(lhs: torch.Tensor, rhs: torch.Tensor,
     ri = None if row_index is None else _index(row_index, m, "row_index")
     oi = None if out_index is None else _index(out_index, m, "out_index")
     n_out = m if out_index is None or out_rows is None else int(out_rows)
-    offsets = torch.zeros(g + 1, dtype=torch.int32, device=lhs.device)
-    offsets[1:] = torch.cumsum(group_sizes, 0)
-    out = torch.zeros((n_out, n), dtype=lhs.dtype, device=lhs.device)
+    gs = group_sizes.to(torch.int32).contiguous()
+    idx64 = (int(ri is not None and ri.dtype == torch.int64)
+             | int(oi is not None and oi.dtype == torch.int64) << 1)
+    # The kernel writes every destination, 0 for rows past
+    # sum(group_sizes). Distinct destinations cover all of out when there is
+    # no out_index or out_rows == M (a permutation, as the F role's combine
+    # passes); only otherwise can rows of out be left untargeted, and out
+    # starts at 0.
+    covered = g > 0 and (oi is None or n_out == m)
+    out = (torch.empty if covered else torch.zeros)(
+        (n_out, n), dtype=lhs.dtype, device=lhs.device)
     err = _fn()(lhs.data_ptr(), rhs.data_ptr(),
-                None if sc is None else sc.data_ptr(), offsets.data_ptr(),
+                None if sc is None else sc.data_ptr(), gs.data_ptr(),
                 None if ri is None else ri.data_ptr(),
-                None if oi is None else oi.data_ptr(), out.data_ptr(),
+                None if oi is None else oi.data_ptr(), idx64, out.data_ptr(),
                 m, k, n, g, lhs.shape[0], n_out, _DTYPES[lhs.dtype], mode,
                 block_n, torch.cuda.current_stream(lhs.device).cuda_stream)
     _build.check(err, "grouped_gemm")

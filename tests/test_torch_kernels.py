@@ -216,42 +216,89 @@ def cuda():
     return torch.device("cuda")
 
 
+# (rows M, K, N, group sizes): ragged groups and a partial N tile; an
+# expert of 150 rows (three passes of the bf16 kernel's 64) beside experts
+# of 1, 15, 16, 17 and 63 rows, with K = 104 (not a multiple of its 32-deep
+# K step) and N = 136; K = 36 (rows not a multiple of 8 elements, so the A
+# tile is not copied in 16-byte chunks). Every case has surplus rows.
+GEMM_CASES = {
+    "ragged": (70, 96, 72, [20, 0, 31, 1, 0, 9]),
+    "multi-pass": (270, 104, 136, [150, 1, 15, 16, 17, 63, 0]),
+    "k-not-x8": (80, 36, 64, [5, 70, 0, 3]),
+}
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_cuda_grouped_gemm_vs_plain(cuda, dtype):
-    lhs, rhs, gs = _gemm_case(5, 70, 96, 72, [20, 0, 31, 1, 0, 9])
+@pytest.mark.parametrize("case", list(GEMM_CASES))
+def test_cuda_grouped_gemm_vs_plain(cuda, case, dtype):
+    m, k, n, sizes = GEMM_CASES[case]
+    lhs, rhs, gs = _gemm_case(5, m, k, n, sizes)
     tl, tr = _pair(lhs, dtype)[1].to(cuda), _pair(rhs, dtype)[1].to(cuda)
-    tg = torch.from_numpy(gs).to(cuda)          # 61 of 70 rows in groups
+    tg = torch.from_numpy(gs).to(cuda)
     out = tops.grouped_gemm(tl, tr, tg)
     want = tops.grouped_gemm(tl, tr, tg, impl="plain")
     np.testing.assert_allclose(_np(out), _np(want),
-                               atol=_gemm_tol(dtype, 96), rtol=1e-2)
-    # fused gather + scatter is bit-identical to the unfused composition
-    perm = torch.randperm(70, generator=torch.Generator().manual_seed(0))
-    ri, oi = perm.to(cuda), torch.roll(perm, 3).to(cuda)
+                               atol=_gemm_tol(dtype, k), rtol=1e-2)
+    assert not _np(out)[int(gs.sum()):].any()
+    # fused gather (sources repeat) + scatter is bit-identical to the
+    # unfused composition, with int64 and with int32 indices
+    gen = torch.Generator().manual_seed(0)
+    ri = torch.randint(0, m, (m,), generator=gen).to(cuda)
+    oi = (torch.randperm(m, generator=gen) + 2).to(cuda)
     fused = tops.grouped_gemm(tl, tr, tg, row_index=ri, out_index=oi,
-                              out_rows=75)
+                              out_rows=m + 5)
     unfused = torch.zeros_like(fused)
-    unfused[oi.long()] = tops.grouped_gemm(tl[ri.long()], tr, tg)
-    if dtype == "float32":
-        assert torch.equal(fused, unfused)
+    unfused[oi] = tops.grouped_gemm(tl[ri], tr, tg)
+    assert torch.equal(fused, unfused)
+    assert torch.equal(fused, tops.grouped_gemm(
+        tl, tr, tg, row_index=ri.int(), out_index=oi.int(), out_rows=m + 5))
+    np.testing.assert_allclose(
+        _np(fused), _np(tops.grouped_gemm(tl, tr, tg, row_index=ri,
+                                          out_index=oi, out_rows=m + 5,
+                                          impl="plain")),
+        atol=_gemm_tol(dtype, k), rtol=1e-2)
+    # out_index a permutation of the M rows (the combine's scatter): out is
+    # not zero-filled first, and the surplus rows' destinations get 0
+    perm = torch.randperm(m, generator=gen).to(cuda)
+    scattered = tops.grouped_gemm(tl, tr, tg, out_index=perm, out_rows=m)
+    unfused = torch.empty_like(scattered)
+    unfused[perm] = out
+    assert torch.equal(scattered, unfused)
+    assert not _np(scattered)[perm[int(gs.sum()):].cpu().numpy()].any()
+
+
+# (Hq, Hkv, d): GQA groups 2, 1 and 4 with head dims 64, 16, 32 and 128
+FLASH_HEADS = [(16, 8, 64), (4, 4, 16), (8, 2, 32), (8, 4, 128)]
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_cuda_flash_prefill_vs_plain(cuda, dtype):
+@pytest.mark.parametrize("heads", FLASH_HEADS,
+                         ids=[f"hq{a}-hkv{b}-d{c}" for a, b, c in FLASH_HEADS])
+def test_cuda_flash_prefill_vs_plain(cuda, heads, dtype):
+    """A 37-row chunk (not a multiple of 16) against a 300-slot cache:
+    from the start, mid-cache, ending on a 64-key tile edge (t_valid 128),
+    ending at T, with t_valid 0 (no live key), under a 40-key window, and
+    not causal."""
     rng = np.random.default_rng(6)
-    b, s, hq, hkv, d, t = 2, 37, 16, 8, 64, 300
+    hq, hkv, d = heads
+    b, s, t = 2, 37, 300
     arrs = [rng.standard_normal(sh).astype(np.float32)
             for sh in ((b, s, hq, d), (b, t, hkv, d), (b, t, hkv, d))]
     q, k, v = (_pair(a, dtype)[1].to(cuda) for a in arrs)
-    for q_offset, t_valid in ((0, None), (200, 237)):
-        out = tops.flash_prefill_attention(q, k, v, q_offset=q_offset,
-                                           t_valid=t_valid)
-        want = tops.flash_prefill_attention(q, k, v, q_offset=q_offset,
-                                            t_valid=t_valid, impl="plain")
+    for q_offset, t_valid, window, causal in (
+            (0, None, None, True), (200, 237, None, True),
+            (91, 128, None, True), (263, 300, None, True),
+            (0, 0, None, True), (100, 137, 40, True),
+            (200, 237, None, False)):
+        kw = dict(q_offset=q_offset, t_valid=t_valid, window=window,
+                  causal=causal)
+        out = tops.flash_prefill_attention(q, k, v, **kw)
+        want = tops.flash_prefill_attention(q, k, v, impl="plain", **kw)
         np.testing.assert_allclose(_np(out), _np(want),
-                                   atol=_attn_tol(dtype, 2e-5), rtol=1e-2)
+                                   atol=_attn_tol(dtype, 2e-5), rtol=1e-2,
+                                   err_msg=str(kw))
 
 
 @pytest.mark.gpu

@@ -212,12 +212,13 @@ def cuda():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("mode,block_n", [("int8", None), ("int4", 64),
-                                          ("int4", 128)],
-                         ids=["int8", "int4-block64", "int4-block128"])
+@pytest.mark.parametrize("mode,block_n", [("int8", None), ("int4", 32),
+                                          ("int4", 64), ("int4", 128)],
+                         ids=["int8", "int4-block32", "int4-block64",
+                              "int4-block128"])
 def test_cuda_quant_gemm_vs_plain(cuda, mode, block_n, dtype):
-    """K = 96 (a ragged last K tile), N = 256; fused gather + scatter is
-    bit-identical to the unfused composition in float32."""
+    """K = 96, N = 256; fused gather + scatter is bit-identical to the
+    unfused composition (float32 and bf16 activations)."""
     rng = np.random.default_rng(6)
     w = torch.from_numpy(rng.standard_normal((6, 96, 256)).astype(np.float32))
     codes, scales = (tgg.quantize_experts(w) if mode == "int8"
@@ -246,8 +247,7 @@ def test_cuda_quant_gemm_vs_plain(cuda, mode, block_n, dtype):
                                           row_index=ri, out_index=oi,
                                           out_rows=75, impl="plain")),
         atol=_gemm_tol(dtype, 96), rtol=1e-2)
-    if dtype == "float32":
-        assert torch.equal(fused, unfused)
+    assert torch.equal(fused, unfused)
 
 
 @pytest.mark.gpu
