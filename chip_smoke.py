@@ -19,8 +19,11 @@ Phases, each of which fails the run by raising:
    bf16 weights by the port's helpers; the serving path never runs them,
    so their launches are those of their checks), and both attention
    kernels on rows with no live key (``lengths`` holding 0, a chunk with
-   ``t_valid = 0``), and the grouped GEMM's bf16 fused == unfused bit
-   identity in every weight mode, each on a generator of its own.
+   ``t_valid = 0``), the grouped GEMM's bf16 fused == unfused bit
+   identity in every weight mode, and split-KV in every variant (query
+   groups 1/2/4/8 x head dims 16/32/64/112/128, both dtypes), each on a
+   generator of its own. The build fails the run if a split-KV variant
+   spills registers (``-Xptxas -v``).
 4. Full-width serve: granite-moe-1b-a400m (24 layers, bf16, random weights
    from seed 0) through ``AFDRuntime`` + ``AFDServeEngine`` on a 24-request
    seeded trace with chunked prefill, on the wall clock, with no policy
@@ -40,7 +43,8 @@ Phases, each of which fails the run by raising:
 With ``--profile`` a last phase times 12 steady engine ticks (16
 sequences, prefill chunks interleaved with decode), traces the same ticks
 with ``torch.profiler`` and prints the device's busy share of the wall
-clock and its time by kernel.
+clock and its time by kernel; it fails unless split-KV ran one device
+kernel per wrapper call.
 
 The last lines are the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -54,6 +58,7 @@ import argparse
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -397,6 +402,44 @@ def kernel_grouped_gemm_quant(torch, timer, cfg, gen, mode):
     return rows[("decode", "gate|up")], checks
 
 
+def splitkv_head_sweep(torch, gen) -> None:
+    """Split-KV against its plain version in every variant the kernel
+    has: query groups 1/2/4/8 x head dims 16/32/64/112/128, f32 and bf16,
+    on 4 sequences of a 1000-slot cache with lengths 0, 1, 517 and more
+    than T."""
+    from repro_torch.kernels import ops
+    hkv, t = 2, 1000
+    lengths = torch.tensor([0, 1, 517, 1003], dtype=torch.int32,
+                           device="cuda")
+    worst = {}
+    for dt in (torch.bfloat16, torch.float32):
+        tol = 5e-2 if dt == torch.bfloat16 else 1e-5
+        for group in (1, 2, 4, 8):
+            for d in (16, 32, 64, 112, 128):
+                q = torch.randn((4, hkv * group, d), generator=gen,
+                                device="cuda").to(dt)
+                kc = torch.randn((4, t, hkv, d), generator=gen,
+                                 device="cuda").to(dt)
+                vc = torch.randn((4, t, hkv, d), generator=gen,
+                                 device="cuda").to(dt)
+                got, lse = ops.splitkv_attention(q, kc, vc, lengths,
+                                                 return_lse=True)
+                want, want_lse = ops.splitkv_attention(
+                    q, kc, vc, lengths, return_lse=True, impl="plain")
+                for what, x, y in (("out", got, want), ("lse", lse, want_lse)):
+                    err = (x.float() - y.float()).abs()
+                    if not bool((err <= tol + 1e-2 * y.float().abs()).all()):
+                        raise AssertionError(
+                            f"splitkv group {group} d {d} {dt} {what}: max "
+                            f"abs err {float(err.max())}")
+                    key = (dt, what)
+                    worst[key] = max(worst.get(key, 0.0), float(err.max()))
+    log("  splitkv sweep (groups 1/2/4/8 x d 16/32/64/112/128, lengths 0, "
+        "1, 517, 1003 of T 1000): max_abs_err " + ", ".join(
+            f"{str(dt).split('.')[-1]} {what} {e:.3e}"
+            for (dt, what), e in worst.items()) + " ok")
+
+
 def no_live_key_rows(torch, cfg, gen) -> None:
     """Rows with no live key: a prefill chunk with t_valid = 0, a chunk
     whose 8-key window holds no live slot, and decode sequences with
@@ -557,6 +600,39 @@ def kernel_splitkv(torch, timer, cfg, gen):
     log(f"  splitkv bf16 (B={b}, T={t}, {live} live keys): kernel {ms:.4f} "
         f"ms, plain {plain_ms:.4f} ms, library {library_ms:.4f} ms, bound "
         f"{b_ms:.4f} ms ({b_by})")
+    clean_ms = timer(lambda: ops.splitkv_attention(q, kc, vc, lengths),
+                     clean=True)
+    clean_lib = timer(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, enable_gqa=True), clean=True)
+    log(f"    L2 flushed by reads: kernel {clean_ms:.4f} ms, library "
+        f"{clean_lib:.4f} ms")
+    # what sets that time: the timer's floor (a one-element add), and the
+    # kernel with every live prefix cut to one split (no combine)
+    from repro_torch.kernels import splitkv_attention as skv
+    split, _ = skv.plan_splits(
+        b, hkv, t, torch.cuda.get_device_properties(0).multi_processor_count,
+        skv.max_split(d, 2))
+    one = torch.zeros(1, device="cuda")
+    short = torch.clamp(lengths, max=split)
+    log(f"    timer floor (one-element add) {timer(lambda: one.add_(1)):.4f}"
+        f" ms; split {split} keys, every prefix cut to one split "
+        f"({int(short.sum())} live keys, no combine) "
+        f"{timer(lambda: ops.splitkv_attention(q, kc, vc, short)):.4f} ms")
+    # the planner's blocks per SM over the whole cache, against other choices
+    waves, sweep = skv.WAVES, []
+    try:
+        for w in (2, 4, 8, 16):
+            skv.WAVES = w
+            split, _ = skv.plan_splits(
+                b, hkv, t,
+                torch.cuda.get_device_properties(0).multi_processor_count,
+                skv.max_split(d, 2))
+            sweep.append(f"{split} keys "
+                         f"{timer(lambda: ops.splitkv_attention(q, kc, vc, lengths)):.4f}")
+    finally:
+        skv.WAVES = waves
+    log(f"    split size (planner default WAVES={waves}): "
+        + ", ".join(sweep) + " ms")
     return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms}
 
@@ -763,6 +839,7 @@ def profile_ticks(torch, cfg, params, n_ticks: int = 12,
     tracer slows the host, not the kernels)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import ops
     eng = _steady_engine(cfg, params, warm_ticks)
     t0 = time.perf_counter()
     for _ in range(n_ticks):
@@ -771,11 +848,13 @@ def profile_ticks(torch, cfg, params, n_ticks: int = 12,
     wall_ms = (time.perf_counter() - t0) * 1e3
     del eng
     eng = _steady_engine(cfg, params, warm_ticks)
+    ops.reset_launch_counts()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(n_ticks):
             eng.tick()
         eng.rt.synchronize()
+    calls = ops.launch_counts()["splitkv_attention"]
     rows = sorted(((ev.self_device_time_total / 1e3, ev.count, ev.key)
                    for ev in prof.key_averages()
                    if ev.device_type == DeviceType.CUDA), reverse=True)
@@ -787,6 +866,12 @@ def profile_ticks(torch, cfg, params, n_ticks: int = 12,
         f"launches ({sum(r[1] for r in rows) / n_ticks:.0f} per tick)")
     for dev_ms, count, key in rows[:10]:
         log(f"  {dev_ms:9.3f} ms {count:6d} x  {key[:90]}")
+    skv = [r for r in rows if "splitkv" in r[2]]
+    log(f"  split-KV: {calls} wrapper calls; device kernels "
+        + "; ".join(f"{key[:60]} {count} x {dev_ms:.3f} ms"
+                    for dev_ms, count, key in skv))
+    if sum(r[1] for r in skv) != calls:
+        raise AssertionError("split-KV device kernels per wrapper call != 1")
 
 
 def main() -> int:
@@ -817,6 +902,11 @@ def main() -> int:
             if ("entry function" in line or "registers" in line
                     or "spill" in line):
                 log(f"  {name}: {line.strip()}")
+    spills = [line.strip() for line in build_logs.get(
+                  "splitkv_attention", "").splitlines()
+              if re.search(r"[1-9]\d* bytes spill (stores|loads)", line)]
+    if spills:
+        raise AssertionError("split-KV variants spill: " + "; ".join(spills))
 
     cfg = get_config("granite-moe-1b-a400m")
     timer = Timer(torch)
@@ -832,6 +922,7 @@ def main() -> int:
             torch, timer, cfg, seeded(torch, seed), mode)
     no_live_key_rows(torch, cfg, seeded(torch, 4))
     fused_bit_identity_bf16(torch, cfg, seeded(torch, 5))
+    splitkv_head_sweep(torch, seeded(torch, 6))
     del timer
 
     log("[4] full-width serve: granite-moe-1b-a400m, 24 layers, bf16")

@@ -64,7 +64,8 @@ def splitkv_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       return_lse: bool = False):
     """One-token GQA attention with per-batch valid lengths.
 
-    q: (B, Hq, d); k, v: (B, T, Hkv, d); lengths: (B,) int32.
+    q: (B, Hq, d); k, v: (B, T, Hkv, d); lengths: (B,) int32 or int64,
+    each clamped to [0, T].
     """
     if resolve_impl(impl, q) == "plain":
         return _ref.splitkv_attention_ref(q, k, v, lengths,

@@ -132,9 +132,9 @@ def attention_decode(params, cfg: ArchConfig, x: torch.Tensor,
     cache = kvcache.write_kv(cfg, cache, k_new, v_new, pos)
     t = cache["k"].shape[1]
     if kops.resolve_impl(impl, x) == "cuda" and cfg.sliding_window is None:
-        lengths = torch.clamp(pos + 1, max=t).to(torch.int32)
+        # the kernel clamps each length to [0, T] and reads pos's dtype
         out = kops.splitkv_attention(q[:, 0], cache["k"], cache["v"],
-                                     lengths, impl="cuda")
+                                     pos + 1, impl="cuda")
         out = out.reshape(x.shape[0], 1, -1)
     else:
         valid = kvcache.valid_mask(cfg, t, pos)                # (B, T)

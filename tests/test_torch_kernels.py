@@ -141,14 +141,31 @@ def test_flash_prefill_plain_vs_jax(dtype, q_offset, t_valid):
 
 # ---- split-KV decode ----------------------------------------------------------
 
+# (Hq, Hkv, d): the first case's small heads, granite-moe's full widths,
+# group 1, Kimi K2's head dim 112 and group 8
+SPLITKV_HEADS = [(8, 2, 16), (16, 8, 64), (8, 8, 32), (16, 2, 112),
+                 (8, 1, 128)]
+SPLITKV_IDS = [f"hq{a}-hkv{b}-d{c}" for a, b, c in SPLITKV_HEADS]
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_splitkv_plain_vs_jax_with_lse(dtype):
+@pytest.mark.parametrize("len_dtype", ["int32", "int64"])
+@pytest.mark.parametrize("heads", SPLITKV_HEADS, ids=SPLITKV_IDS)
+def test_splitkv_plain_vs_jax_with_lse(heads, len_dtype, dtype):
+    """The first case keeps its 40-slot cache and lengths [1, 23, 40]; the
+    others run a 48-slot cache (three of the Pallas kernel's 16-key chunks)
+    with lengths 0 (no live key), 1, T and more than T."""
     rng = np.random.default_rng(3)
-    b, hq, hkv, d, t = 3, 8, 2, 16, 40
+    hq, hkv, d = heads
+    if heads == SPLITKV_HEADS[0]:
+        b, t, lengths = 3, 40, [1, 23, 40]
+    else:
+        b, t = 5, 48
+        lengths = [0, 1, t, t + 9, 17]
     q = rng.standard_normal((b, hq, d)).astype(np.float32)
     k = rng.standard_normal((b, t, hkv, d)).astype(np.float32)
     v = rng.standard_normal((b, t, hkv, d)).astype(np.float32)
-    lengths = np.asarray([1, 23, 40], np.int32)
+    lengths = np.asarray(lengths, getattr(np, len_dtype))
     (jq, tq), (jk, tk), (jv, tv) = (_pair(a, dtype) for a in (q, k, v))
     out, lse = tops.splitkv_attention(tq, tk, tv, torch.from_numpy(lengths),
                                       return_lse=True)
@@ -161,6 +178,28 @@ def test_splitkv_plain_vs_jax_with_lse(dtype):
         np.testing.assert_allclose(_np(out), _np(want), atol=tol, rtol=1e-2)
         np.testing.assert_allclose(_np(lse), _np(want_lse), atol=tol,
                                    rtol=1e-2)
+
+
+@pytest.mark.parametrize("d,elem_bytes", [(16, 4), (64, 2), (112, 2),
+                                          (112, 4), (128, 4)])
+@pytest.mark.parametrize("b,hkv,t", [(8, 8, 1024), (5, 8, 1000), (3, 2, 40),
+                                     (1, 1, 4096), (64, 8, 32768)])
+def test_splitkv_split_plan(b, hkv, t, d, elem_bytes):
+    """The planner's splits cover [0, T) exactly once, each a multiple of
+    16 keys that fits the kernel's shared-memory tile; at the main path's
+    shape (8 sequences, 8 kv heads, T 1024) on 132 SMs the grid holds at
+    least 132 blocks."""
+    from repro_torch.kernels import splitkv_attention as skv
+    most = skv.max_split(d, elem_bytes)
+    assert most % 16 == 0 and 2 * most * d * elem_bytes <= skv.KV_TILE_BYTES
+    split, n_splits = skv.plan_splits(b, hkv, t, 132, most)
+    assert split % 16 == 0 and 16 <= split <= most
+    covered = np.zeros(t, np.int64)
+    for i in range(n_splits):
+        covered[i * split:min((i + 1) * split, t)] += 1
+    assert (covered == 1).all() and (n_splits - 1) * split < t
+    if (b, hkv, t) == (8, 8, 1024):
+        assert b * hkv * n_splits >= 132
 
 
 def test_moe_ffn_ref_vs_jax():
@@ -303,19 +342,37 @@ def test_cuda_flash_prefill_vs_plain(cuda, heads, dtype):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_cuda_splitkv_vs_plain(cuda, dtype):
+@pytest.mark.parametrize("heads", SPLITKV_HEADS, ids=SPLITKV_IDS)
+def test_cuda_splitkv_vs_plain(cuda, heads, dtype):
+    """T = 1000 (not a multiple of the split), lengths on the planned
+    split's boundaries ±1, 0 and more than T, as int32 and int64; calls
+    with 12, then 17 (counters grow), then 12 sequences again (counters
+    were reset); a repeat call is bit-identical."""
+    from repro_torch.kernels import splitkv_attention as skv
     rng = np.random.default_rng(7)
-    b, hq, hkv, d, t = 5, 16, 8, 64, 1000
+    hq, hkv, d = heads
+    t = 1000
     arrs = [rng.standard_normal(sh).astype(np.float32)
-            for sh in ((b, hq, d), (b, t, hkv, d), (b, t, hkv, d))]
+            for sh in ((17, hq, d), (17, t, hkv, d), (17, t, hkv, d))]
     q, k, v = (_pair(a, dtype)[1].to(cuda) for a in arrs)
-    lengths = torch.tensor([1, 63, 64, 65, 1000], dtype=torch.int32,
-                           device=cuda)
-    out, lse = tops.splitkv_attention(q, k, v, lengths, return_lse=True)
-    want, want_lse = tops.splitkv_attention(q, k, v, lengths,
-                                            return_lse=True, impl="plain")
     tol = _attn_tol(dtype, 1e-5)
-    np.testing.assert_allclose(_np(out), _np(want), atol=tol,
-                               rtol=1e-2)
-    np.testing.assert_allclose(_np(lse), _np(want_lse),
-                               atol=tol, rtol=1e-2)
+    n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for b in (12, 17, 12):
+        split, _ = skv.plan_splits(b, hkv, t, n_sm,
+                                   skv.max_split(d, q.element_size()))
+        lengths = [1, 63, 64, 65, 1000, 0, split - 1, split, split + 1,
+                   2 * split + 1, 999, 1005, 3 * split, 500, 7, 0, 2 * split]
+        for len_dtype in (torch.int32, torch.int64):
+            lens = torch.tensor(lengths[:b], dtype=len_dtype, device=cuda)
+            args = (q[:b], k[:b], v[:b], lens)
+            out, lse = tops.splitkv_attention(*args, return_lse=True)
+            want, want_lse = tops.splitkv_attention(*args, return_lse=True,
+                                                    impl="plain")
+            msg = f"b={b} split={split} lengths {len_dtype}"
+            np.testing.assert_allclose(_np(out), _np(want), atol=tol,
+                                       rtol=1e-2, err_msg=msg)
+            np.testing.assert_allclose(_np(lse), _np(want_lse), atol=tol,
+                                       rtol=1e-2, err_msg=msg)
+            again = tops.splitkv_attention(*args, return_lse=True)
+            assert torch.equal(again[0], out) and torch.equal(again[1], lse)
+            assert torch.equal(tops.splitkv_attention(*args), out)
