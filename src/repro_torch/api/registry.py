@@ -1,8 +1,8 @@
 """Name → spec resolution for the port's entry point: the part of
-``repro.api.registry`` that ``serve-traffic`` needs (hardware and
-scenario lookup, and the analysis view of an executable config), kept as a
-copy so the port imports nothing of ``repro``. Models by name, routers and
-named sweeps wait for the fleet slice.
+``repro.api.registry`` that ``serve-traffic`` and ``serve-fleet`` need
+(hardware, scenario and router lookup, and the analysis view of an
+executable config), kept as a copy so the port imports nothing of
+``repro``. Models by name and named sweeps wait for the sweep slice.
 """
 
 from __future__ import annotations
@@ -90,3 +90,20 @@ def resolve_hardware(hw: HardwareLike) -> HardwareSpec:
 
 def list_hardware() -> List[str]:
     return sorted(HARDWARE)
+
+
+# --- fleet routers -----------------------------------------------------------
+
+def resolve_router(name: str):
+    """A fresh fleet routing policy by name (``repro_torch.fleet.router``)."""
+    from repro_torch.fleet.router import ROUTER_POLICIES, get_policy
+    try:
+        return get_policy(name)
+    except KeyError:
+        raise unknown_name_error("router policy", name,
+                                 ROUTER_POLICIES) from None
+
+
+def list_routers() -> List[str]:
+    from repro_torch.fleet.router import list_policies
+    return list_policies()

@@ -41,6 +41,14 @@
 // float32 keeps the CUDA-core body (one block per 16 query rows and q
 // head, one key per lane, float32 FMAs): that path is not on the serve,
 // and its tolerance is tighter than bf16 tensor-core products allow.
+//
+// Head dims 16, 32, 64, 112 (Kimi K2) and 128. Every loop of the bf16 body
+// steps over d in k16 slices (D / 16 of them) or n8 tiles (D / 8), so d
+// only has to be a multiple of 16: at d = 112 a shared row is P = 120 bf16
+// (240 B, an odd number of 16-byte units, so the 8 rows an ldmatrix reads
+// fall on 8 different bank groups), QK^T takes 7 k16 steps and P V 7
+// ldmatrix.x4.trans pairs. The float32 body rounds d up to whole lanes
+// (DPL) and masks the lanes past d.
 #include "common.cuh"
 
 namespace {
@@ -430,6 +438,7 @@ extern "C" int rt_flash_prefill(const void* q, const void* k, const void* v,
       case 16: err = launch<16>(a, bf16, s); break;
       case 32: err = launch<32>(a, bf16, s); break;
       case 64: err = launch<64>(a, bf16, s); break;
+      case 112: err = launch<112>(a, bf16, s); break;
       case 128: err = launch<128>(a, bf16, s); break;
       default: return static_cast<int>(cudaErrorInvalidValue);
     }

@@ -26,7 +26,7 @@ launches = 0
 
 _FN = None
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 112, 128)
 
 
 def _fn():

@@ -17,7 +17,7 @@ moves, and the byte counters still record what would cross the wire so
 the serving engine can check them against the Eq. 9/17 prediction.
 ``decode_step_3bo`` issues micro-batches in the 3BO rotation order; the
 rotation runs on one CUDA stream (overlapping it on separate streams is
-later work).
+later work). ``rescale`` rebuilds a runtime on another role split.
 
 Dense architectures have no routed experts: ``AFDRuntime`` refuses them.
 Mamba mixers are not ported yet and are refused too.
@@ -306,3 +306,26 @@ def split_nodes(devices: Sequence, n_a_nodes: int, n_f_nodes: int,
     f = devices[n_a_nodes * devices_per_node:need]
     return list(a), list(f)
 
+
+def rescale(runtime: AFDRuntime, a_device, f_device) -> AFDRuntime:
+    """Rebuild the runtime on a new role split: the paper's discrete
+    N_A/N_F adjustment executed live (after a re-plan, or after a failure
+    shrinks a role). The parameters are reassembled from the two roles and
+    moved to the new devices; tensors already there are shared, not
+    copied. Caches are not migrated: in-flight requests drain and requeue
+    as ``AFDServeEngine.simulate_failure`` does."""
+    cfg = runtime.cfg
+    layers = []
+    for lp, fl in zip(runtime.a_params["layers"], runtime.f_layers):
+        lp = dict(lp)
+        if fl is not None:
+            lp["moe"] = {**lp["moe"], **fl}
+        layers.append(lp)
+    a = runtime.a_params
+    params = {"embed": a["embed"],
+              # the tied head's (D, V) copy is the runtime's own; the new
+              # runtime makes its own from the embedding
+              "lm_head": {} if cfg.tie_embeddings else a["lm_head"],
+              "final_norm": a["final_norm"], "layers": layers}
+    return AFDRuntime(cfg, params, device=a_device, f_device=f_device,
+                      impl=runtime.impl)

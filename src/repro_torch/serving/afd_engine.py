@@ -24,8 +24,9 @@ The clock is virtual and deterministic by default (a fixed tick duration,
 or an injected latency stream ``tick_latencies``); ``tick_seconds=None``
 uses the wall clock, synchronising the device before each reading.
 
-Not ported yet (they wait for the fleet slice): the fleet hooks
-(``simulate_failure``, ``drain_all``, ``resubmit``).
+The fleet layer (``repro_torch.fleet``) reads the queue and KV
+introspection (``queued_kv_bytes`` and friends) and drains replicas
+through ``simulate_failure``, ``drain_all`` and ``resubmit``.
 """
 
 from __future__ import annotations
@@ -44,7 +45,8 @@ from repro_torch.core.hardware import HardwareSpec
 from repro_torch.core.modelspec import MoEModelSpec
 from repro_torch.models.kvcache import attn_cache_len
 from repro_torch.parallel.afd import AFDRuntime
-from repro_torch.serving.engine import PAD, splice_batch_slot
+from repro_torch.serving.engine import (PAD, failure_drain_count,
+                                       splice_batch_slot)
 from repro_torch.serving.scheduler import ChunkedPrefillPolicy, SLOScheduler
 from repro_torch.serving.workload import ArrivalEvent
 
@@ -168,6 +170,8 @@ class ServeStats:
     tokens_out: int = 0
     arrivals: int = 0
     completed: int = 0
+    requeued: int = 0
+    replans: int = 0
 
 
 class AFDServeEngine:
@@ -263,6 +267,12 @@ class AFDServeEngine:
     def live_requests(self) -> List[ServeRequest]:
         return [r for mb in self.mbs for r in mb.slots if r is not None]
 
+    def prefill_backlog_tokens(self) -> int:
+        """Prompt tokens admitted but not yet prefilled (chunk backlog),
+        which the fleet's predicted-TTFT router prices ahead of new work."""
+        return sum(len(pf.req.prompt) - pf.offset
+                   for mb in self.mbs for pf in mb.prefill.values())
+
     @property
     def prefill_chunk(self) -> Optional[int]:
         return (self.prefill_policy.chunk if self.prefill_policy is not None
@@ -279,6 +289,16 @@ class AFDServeEngine:
     def kv_occupancy_bytes(self) -> int:
         return sum(self.kv_request_bytes(len(r.prompt), r.max_new_tokens)
                    for r in self.live_requests())
+
+    def queued_kv_bytes(self) -> int:
+        return sum(self.kv_request_bytes(len(r.prompt), r.max_new_tokens)
+                   for r in self.queue)
+
+    def queued_prompt_tokens(self) -> int:
+        return sum(len(r.prompt) for r in self.queue)
+
+    def queued_pending_tokens(self) -> int:
+        return sum(r.max_new_tokens for r in self.queue)
 
     # ---- cumulative wire prediction ----------------------------------------
 
@@ -535,6 +555,67 @@ class AFDServeEngine:
         if req.done:
             self._complete(mb, slot)
 
+    # ---- fleet drain hooks -------------------------------------------------
+
+    def _drain_slot(self, mb: _MicroBatch, slot: int) -> Optional[ServeRequest]:
+        """Evict one slot: the request (if any) restarts generation on
+        re-admission but keeps its ``t_arrive``/``t_first`` timestamps."""
+        req = mb.slots[slot]
+        if req is not None:
+            req.output.clear()
+        if mb.prefill.pop(slot, None) is not None:
+            # a mid-prefill eviction abandons the partial cache; the prompt
+            # restarts from scratch on re-admission
+            mb_i = next(i for i, m in enumerate(self.mbs) if m is mb)
+            self._prefill_fifo = collections.deque(
+                e for e in self._prefill_fifo if e != (mb_i, slot))
+        mb.slots[slot] = None
+        mb.tokens[slot] = PAD
+        mb.pos[slot] = 0          # in place: this micro-batch's own tensor
+        return req
+
+    def simulate_failure(self, frac_nodes_lost: float, replan=None) -> int:
+        """Fail ``frac_nodes_lost`` of this replica's capacity: exactly
+        ``ceil(frac · total_slots)`` slots, the lowest (micro-batch, slot)
+        indices, drain their requests back to the front of the local
+        queue; the other slots keep their caches. ``replan``, if given, is
+        called with the surviving fraction. Returns the requeue count."""
+        n_drain = failure_drain_count(frac_nodes_lost, self.total_slots)
+        requeued = 0
+        for k in range(n_drain):
+            req = self._drain_slot(self.mbs[k // self.mb_slots],
+                                   k % self.mb_slots)
+            if req is not None:
+                self.queue.appendleft(req)
+                requeued += 1
+        self.stats.requeued += requeued
+        self.stats.replans += 1
+        if replan is not None:
+            replan(1.0 - frac_nodes_lost)
+        return requeued
+
+    def drain_all(self) -> List[ServeRequest]:
+        """Evacuate the replica (the fleet's failure path): every in-flight
+        request in slot order, then the queue in arrival order, leaves with
+        its timestamps so the fleet can requeue it elsewhere."""
+        out: List[ServeRequest] = []
+        for mb in self.mbs:
+            for slot in range(self.mb_slots):
+                req = self._drain_slot(mb, slot)
+                if req is not None:
+                    out.append(req)
+        out.extend(self.queue)
+        self.queue.clear()
+        self.stats.requeued += len(out)
+        return out
+
+    def resubmit(self, req: ServeRequest) -> None:
+        """Re-admit a drained request: generation restarts, ``t_arrive``
+        and ``t_first`` stay (``_admit`` and ``_finish_prefill`` stamp
+        ``t_first`` only while it is unset), so TTFT spans the outage."""
+        req.output.clear()
+        self.queue.append(req)
+
     # ---- the decode tick ---------------------------------------------------
 
     def tick(self) -> int:
@@ -639,6 +720,7 @@ class AFDServeEngine:
             "tpot_mean": (float(np.mean([r.tpot for r in done]))
                           if done else None),
             "windows": len(self.windows),
+            "requeued": self.stats.requeued,
             "kv_occupancy_bytes": self.kv_occupancy_bytes(),
             "kv_budget_bytes": self.kv_budget_bytes,
             "bytes_match_all": all(w.bytes_match for w in self.windows),

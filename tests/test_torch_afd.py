@@ -223,7 +223,9 @@ def test_port_imports_no_jax_and_no_repro():
     assert {f"repro_torch.core.{m}" for m in (
         "hardware", "modelspec", "budget", "comm_roofline", "hfu_bound",
         "imbalance", "planner")} | {"repro_torch.api.registry",
-                                    "repro_torch.serving.scheduler"} <= imported
+                                    "repro_torch.serving.scheduler"} | {
+        f"repro_torch.fleet.{m}" for m in (
+            "events", "router", "rescaler", "controller")} <= imported
 
 
 def test_runtime_defaults_to_cuda():

@@ -116,14 +116,22 @@ def test_grouped_gemm_fused_permute_vs_jax(dtype):
 
 # ---- flash prefill ------------------------------------------------------------
 
+# (Hq, Hkv, d): small heads, and Kimi K2's head dim 112 with group 8
+KIMI_FLASH = (16, 2, 112)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("q_offset,t_valid", [(0, None), (5, 17), (12, 20)],
-                         ids=["causal", "offset", "offset-partial-cache"])
-def test_flash_prefill_plain_vs_jax(dtype, q_offset, t_valid):
+@pytest.mark.parametrize(
+    "q_offset,t_valid,heads",
+    [(0, None, (4, 2, 16)), (5, 17, (4, 2, 16)), (12, 20, (4, 2, 16)),
+     (0, None, KIMI_FLASH), (12, 20, KIMI_FLASH)],
+    ids=["causal", "offset", "offset-partial-cache", "causal-hq16-hkv2-d112",
+         "offset-partial-cache-hq16-hkv2-d112"])
+def test_flash_prefill_plain_vs_jax(dtype, q_offset, t_valid, heads):
     """A chunk of 8 rows at absolute positions q_offset.. against a
     24-slot cache whose first t_valid slots hold keys."""
     rng = np.random.default_rng(2)
-    b, s, hq, hkv, d, t = 2, 8, 4, 2, 16, 24
+    (hq, hkv, d), b, s, t = heads, 2, 8, 24
     q = rng.standard_normal((b, s, hq, d)).astype(np.float32)
     k = rng.standard_normal((b, t, hkv, d)).astype(np.float32)
     v = rng.standard_normal((b, t, hkv, d)).astype(np.float32)
@@ -307,8 +315,10 @@ def test_cuda_grouped_gemm_vs_plain(cuda, case, dtype):
     assert not _np(scattered)[perm[int(gs.sum()):].cpu().numpy()].any()
 
 
-# (Hq, Hkv, d): GQA groups 2, 1 and 4 with head dims 64, 16, 32 and 128
-FLASH_HEADS = [(16, 8, 64), (4, 4, 16), (8, 2, 32), (8, 4, 128)]
+# (Hq, Hkv, d): GQA groups 2, 1 and 4 with head dims 64, 16, 32 and 128;
+# then Kimi K2's head dim 112 at group 8, and at Kimi K2's own heads
+FLASH_HEADS = [(16, 8, 64), (4, 4, 16), (8, 2, 32), (8, 4, 128),
+               (16, 2, 112), (64, 8, 112)]
 
 
 @pytest.mark.gpu

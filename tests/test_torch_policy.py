@@ -230,7 +230,7 @@ def test_engine_policy_and_probe_match_jax():
     assert _d(te.decisions) == _d(je.decisions)
     jsum = je.summary()
     tsum = te.summary()
-    assert {k: v for k, v in jsum.items() if k != "requeued"} == tsum
+    assert jsum == tsum
     assert ({r.rid: r.output for r in te.completed}
             == {r.rid: r.output for r in je.completed})
     assert tsum["completed"] == 10 and tsum["bytes_match_all"]
@@ -286,7 +286,7 @@ def test_cli_serve_traffic_matches_jax(tmp_path, policy):
                               tmp_path, "port")
     assert jrc == trc == 0
     assert tdoc["windows"] == jdoc["windows"]
-    skip = {"wall_s", "device", "requeued"}
+    skip = {"wall_s", "device"}
     assert ({k: v for k, v in tdoc["summary"].items() if k not in skip}
             == {k: v for k, v in jdoc["summary"].items() if k not in skip})
     want_cols = {None: ("sigma alpha", "hfu_meas/pred"),
