@@ -6,6 +6,7 @@
     python -m repro_torch serve-fleet --profile poisson-burst \
         [--replicas 3 | --replica-shapes 2x2,1x4] [--router round-robin] \
         [--fail T:REPLICA[:FRAC]] [--no-rescale] [--device cuda|cpu] ...
+    python -m repro_torch calibrate [--device cuda|cpu]
 
 ``serve-traffic`` runs the two-role AFD serving engine (``AFDRuntime`` +
 ``AFDServeEngine``) on the smoke config of ``--arch`` with random weights
@@ -20,10 +21,14 @@ router (``repro_torch.fleet``), with scheduled failures and the elastic
 N_F rescaler, as ``python -m repro serve-fleet`` does; the replicas share
 one parameter tree on the device.
 
-Both exit 1 if measured M2N bytes diverge from the Eq. 9/17 prediction
-(``serve-fleet`` also if a request is lost), and 2 on a bad argument (an
-unknown hardware or router name, ``--policy afd`` without a plan, a
-``--fail`` target outside the fleet).
+``calibrate`` runs ``repro_torch.provision.calibrate`` with the JAX
+package's defaults (the counterpart of ``python -m repro provision
+--calibrate``'s calibration) and prints its report as JSON.
+
+``serve-traffic`` and ``serve-fleet`` exit 1 if measured M2N bytes
+diverge from the Eq. 9/17 prediction (``serve-fleet`` also if a request
+is lost), and 2 on a bad argument (an unknown hardware or router name,
+``--policy afd`` without a plan, a ``--fail`` target outside the fleet).
 """
 
 from __future__ import annotations
@@ -273,6 +278,12 @@ def cmd_serve_fleet(args) -> int:
     return 0
 
 
+def cmd_calibrate(args) -> int:
+    from repro_torch.provision.calibrate import calibrate
+    print(json.dumps(calibrate(device=args.device).to_obj(), indent=2))
+    return 0
+
+
 def _write_json(doc, path: Optional[str]) -> None:
     if not path:
         return
@@ -369,6 +380,14 @@ def build_parser() -> argparse.ArgumentParser:
     sf.add_argument("--json", default=None, metavar="PATH",
                     help="write the JSON document to PATH ('-' = stdout)")
     sf.set_defaults(fn=cmd_serve_fleet, rescale=True)
+
+    ca = sub.add_parser("calibrate",
+                        help="analytic-vs-measured HFU calibration on the "
+                             "serve-traffic path")
+    ca.add_argument("--device", default="cuda",
+                    help="torch device (default cuda; cpu for the plain "
+                         "PyTorch path)")
+    ca.set_defaults(fn=cmd_calibrate)
     return p
 
 

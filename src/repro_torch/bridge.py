@@ -24,15 +24,19 @@ import torch
 from repro_torch.models.common import ArchConfig
 
 
+# Leaves the JAX model keeps in float32 whatever the param dtype: the
+# router, and the Mamba-2 decay, skip and step-bias vectors.
+F32_LEAVES = frozenset({"router", "A_log", "D", "dt_bias"})
+
+
 def _to_torch(tree, device, dtype: torch.dtype, name: str = ""):
     if isinstance(tree, dict):
         return {k: _to_torch(v, device, dtype, k) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return [_to_torch(v, device, dtype, name) for v in tree]
     t = torch.from_numpy(np.array(tree))          # a writable copy
-    # The router is float32 in the JAX model whatever the param dtype.
     return t.to(device=device,
-                dtype=torch.float32 if name == "router" else dtype)
+                dtype=torch.float32 if name in F32_LEAVES else dtype)
 
 
 def _take(tree, p: int):

@@ -14,6 +14,7 @@ from repro_torch.models.common import ArchConfig
 _ALIASES: Dict[str, str] = {
     "granite-moe-1b-a400m": "granite_moe_1b_a400m",
     "kimi-k2-1t-a32b": "kimi_k2_1t_a32b",
+    "jamba-v0.1-52b": "jamba_v0_1_52b",
 }
 
 ARCH_IDS: List[str] = list(_ALIASES)

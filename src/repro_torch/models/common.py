@@ -112,6 +112,18 @@ class ArchConfig:
         return self.n_kv_heads * self.d_head
 
     @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_head_dim if self.ssm_head_dim else 0
+
+    @property
+    def conv_dim(self) -> int:
+        return self.d_inner + 2 * self.ssm_groups * self.ssm_state
+
+    @property
     def compute_dtype(self) -> torch.dtype:
         return getattr(torch, self.dtype)
 

@@ -1,7 +1,12 @@
-"""KV caches for autoregressive decoding: ``{"k", "v"}`` planes of shape
-(B, T, n_kv, d_head), T = max context, or T = window for sliding-window
-archs (a ring: slot = pos mod window). Counterpart of
-``repro.models.kvcache`` for attention layers.
+"""Caches for autoregressive decoding, one kind per mixer family.
+Counterpart of ``repro.models.kvcache``.
+
+  * attention: ``{"k", "v"}`` planes of shape (B, T, n_kv, d_head),
+    T = max context, or T = window for sliding-window archs (a ring:
+    slot = pos mod window);
+  * Mamba-2: ``{"conv"}`` tail (B, ssm_conv - 1, conv_dim) in the compute
+    dtype and the recurrent ``{"state"}`` (B, heads, head_dim, d_state) in
+    float32; O(1) in the sequence length.
 
 The writers update the cache tensors in place and return the same dict
 (the JAX versions return new arrays): a decode step then moves one row per
@@ -14,7 +19,7 @@ from typing import Dict
 
 import torch
 
-from repro_torch.models.common import ArchConfig
+from repro_torch.models.common import ArchConfig, LayerSpec
 
 Cache = Dict[str, torch.Tensor]
 
@@ -31,6 +36,21 @@ def init_attn_cache(cfg: ArchConfig, batch: int, max_len: int,
     shape = (batch, attn_cache_len(cfg, max_len), cfg.n_kv_heads, cfg.d_head)
     return {"k": torch.zeros(shape, dtype=cfg.compute_dtype, device=device),
             "v": torch.zeros(shape, dtype=cfg.compute_dtype, device=device)}
+
+
+def init_ssm_cache(cfg: ArchConfig, batch: int, device) -> Cache:
+    return {"conv": torch.zeros((batch, cfg.ssm_conv - 1, cfg.conv_dim),
+                                dtype=cfg.compute_dtype, device=device),
+            "state": torch.zeros((batch, cfg.ssm_heads, cfg.ssm_head_dim,
+                                  cfg.ssm_state), dtype=torch.float32,
+                                 device=device)}
+
+
+def init_layer_cache(cfg: ArchConfig, spec: LayerSpec, batch: int,
+                     max_len: int, device) -> Cache:
+    if spec.kind == "mamba":
+        return init_ssm_cache(cfg, batch, device)
+    return init_attn_cache(cfg, batch, max_len, device)
 
 
 def write_kv(cfg: ArchConfig, cache: Cache, k_new: torch.Tensor,

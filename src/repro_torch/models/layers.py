@@ -37,6 +37,14 @@ def rmsnorm_1d(scale: torch.Tensor, x: torch.Tensor,
     return (xf * torch.rsqrt(ms + eps) * scale.float()).to(x.dtype)
 
 
+def gated_rmsnorm(scale: torch.Tensor, x: torch.Tensor, z: torch.Tensor,
+                  eps: float = 1e-6) -> torch.Tensor:
+    """Mamba-2 gated RMSNorm: norm(x * silu(z)) * scale, in float32."""
+    xf = x.float() * F.silu(z.float())
+    ms = xf.square().mean(-1, keepdim=True)
+    return (xf * torch.rsqrt(ms + eps) * scale.float()).to(x.dtype)
+
+
 def rope_frequencies(d_head: int, theta: float, device) -> torch.Tensor:
     half = d_head // 2
     return 1.0 / (theta ** (torch.arange(0, half, dtype=torch.float32,

@@ -3,7 +3,7 @@
 Returns the layout ``parallel.afd.split_roles`` consumes::
 
     {"embed": {"tok"}, "lm_head": {} | {"w"}, "final_norm": {"scale"},
-     "layers": [{"ln1", "attn", "ln2", "moe" | "mlp"}, ...]}
+     "layers": [{"ln1", "attn" | "mamba", "ln2", "moe" | "mlp"}, ...]}
 
 The key names are those of the JAX package's ``Model.init`` pytree
 (``repro/models/transformer.py``), whose ``decoder.prefix`` /
@@ -20,6 +20,7 @@ import torch
 
 from repro_torch.models.common import ArchConfig, dense_init, embed_init
 from repro_torch.models.layers import init_mlp
+from repro_torch.models.mamba2 import init_mamba
 from repro_torch.models.moe import init_moe
 
 
@@ -49,18 +50,17 @@ def _attention(seed: int, name: str, cfg: ArchConfig, device):
 
 
 def init_params(cfg: ArchConfig, seed: int = 0, device="cuda"):
-    """Per-layer decoder params for attention/MoE configs, on ``device``."""
+    """Per-layer decoder params (attention or Mamba-2 mixers, MoE or dense
+    FFNs), on ``device``."""
     layers: List[Dict[str, object]] = []
     for i in range(cfg.n_layers):
         spec = cfg.layer_spec(i)
-        if spec.kind != "attn":
-            raise NotImplementedError(
-                f"{cfg.name}: layer {i} is a Mamba mixer, which the port "
-                "does not carry yet")
         name = f"layer{i}"
-        lp: Dict[str, object] = {"ln1": _norm(cfg, device),
-                                 "attn": _attention(seed, f"{name}.attn",
-                                                    cfg, device)}
+        lp: Dict[str, object] = {"ln1": _norm(cfg, device)}
+        if spec.kind == "attn":
+            lp["attn"] = _attention(seed, f"{name}.attn", cfg, device)
+        else:
+            lp["mamba"] = init_mamba(seed, f"{name}.mamba", cfg, device)
         if spec.moe:
             lp["ln2"] = _norm(cfg, device)
             lp["moe"] = init_moe(seed, f"{name}.moe", cfg, device)

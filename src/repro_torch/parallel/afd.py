@@ -19,8 +19,11 @@ the serving engine can check them against the Eq. 9/17 prediction.
 rotation runs on one CUDA stream (overlapping it on separate streams is
 later work). ``rescale`` rebuilds a runtime on another role split.
 
-Dense architectures have no routed experts: ``AFDRuntime`` refuses them.
-Mamba mixers are not ported yet and are refused too.
+Mixers are attention or Mamba-2 (hybrid archs such as Jamba): a Mamba
+layer's mixer runs on the A role with an O(1) recurrent state, and its
+chunked prefill steps the decode recurrence over the chunk, as the JAX
+runtime does. Dense architectures have no routed experts: ``AFDRuntime``
+refuses them.
 """
 
 from __future__ import annotations
@@ -33,7 +36,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kops
 from repro_torch.models import attention as attn_mod
-from repro_torch.models import kvcache, moe as moe_mod
+from repro_torch.models import kvcache, mamba2, moe as moe_mod
 from repro_torch.models.common import ArchConfig, LayerSpec
 from repro_torch.models.layers import (apply_lm_head, apply_mlp, apply_norm,
                                        embed_tokens)
@@ -118,9 +121,6 @@ class AFDRuntime:
             raise ValueError(f"{cfg.name}: AFD requires routed experts")
         self.cfg = cfg
         self.specs: List[LayerSpec] = cfg.layer_plan().flat()
-        if any(s.kind != "attn" for s in self.specs):
-            raise NotImplementedError(
-                f"{cfg.name}: Mamba mixers are not ported yet")
         device = resolve_device(device)
         self.a_device = resolve_device(a_device or device)
         self.f_device = resolve_device(f_device or device)
@@ -165,11 +165,31 @@ class AFDRuntime:
 
     # ---- per-layer A-role pieces -------------------------------------------
 
-    def _mixer(self, lp, x, cache, pos):
+    def _mixer(self, lp, spec: LayerSpec, x, cache, pos):
         h = apply_norm(lp["ln1"], self.cfg, x)
-        mix, nc = attn_mod.attention_decode(lp["attn"], self.cfg, h, cache,
-                                            pos, impl=self.impl)
+        if spec.kind == "attn":
+            mix, nc = attn_mod.attention_decode(lp["attn"], self.cfg, h,
+                                                cache, pos, impl=self.impl)
+        else:
+            mix, nc = mamba2.mamba_decode(lp["mamba"], self.cfg, h, cache)
         return x + mix, nc
+
+    def _mixer_chunk(self, lp, spec: LayerSpec, x, cache, pos):
+        h = apply_norm(lp["ln1"], self.cfg, x)
+        if spec.kind == "attn":
+            mix, nc = attn_mod.attention_prefill_cached(
+                lp["attn"], self.cfg, h, cache, pos, impl=self.impl)
+            return x + mix, nc
+        # The SSM recurrence has no cached-state batched form here: step
+        # the chunk token by token, bit-identical to decode (each token is
+        # made contiguous, as decode's is: a strided operand takes another
+        # CPU GEMM path). The M2N saving lives in the MoE dispatch.
+        outs = []
+        for j in range(x.shape[1]):
+            mj, cache = mamba2.mamba_decode(lp["mamba"], self.cfg,
+                                            h[:, j:j + 1].contiguous(), cache)
+            outs.append(mj)
+        return x + torch.cat(outs, dim=1), cache
 
     def _ffn_local(self, lp, spec: LayerSpec, x):
         """Dense-MLP layers run wholly on the A role."""
@@ -219,20 +239,22 @@ class AFDRuntime:
     # ---- public decode ---------------------------------------------------------
 
     def init_cache(self, batch: int, max_len: int):
-        caches = [kvcache.init_attn_cache(self.cfg, batch, max_len,
-                                          self.a_device)
-                  for _ in self.specs]
+        caches = [kvcache.init_layer_cache(self.cfg, s, batch, max_len,
+                                           self.a_device)
+                  for s in self.specs]
         return caches, torch.zeros(batch, dtype=torch.int32,
                                    device=self.a_device)
 
     def decode_step(self, tokens: torch.Tensor, caches, pos: torch.Tensor):
-        """One token for one micro-batch. tokens: (B,). The caches are
-        updated in place and returned."""
+        """One token for one micro-batch. tokens: (B,). Returns (logits,
+        caches, pos + 1): attention caches are updated in place, Mamba
+        caches are new tensors, so callers keep the returned list."""
         x = embed_tokens(self.a_params["embed"], self.cfg, tokens[:, None],
                          pos[:, None])
         new_caches = []
         for i, spec in enumerate(self.specs):
-            x, nc = self._mixer(self.a_params["layers"][i], x, caches[i], pos)
+            x, nc = self._mixer(self.a_params["layers"][i], spec, x,
+                                caches[i], pos)
             x = self._ffn(i, spec, x)
             new_caches.append(nc)
         return self._head(x)[:, 0], new_caches, pos + 1
@@ -249,9 +271,9 @@ class AFDRuntime:
             states.append({"x": x, "caches": caches, "new": [], "pos": pos})
         for i, spec in enumerate(self.specs):
             lp = self.a_params["layers"][i]
-            for st in states:            # stage 1: A role attention
-                st["x"], nc = self._mixer(lp, st["x"], st["caches"][i],
-                                          st["pos"])
+            for st in states:            # stage 1: A role mixers
+                st["x"], nc = self._mixer(lp, spec, st["x"],
+                                          st["caches"][i], st["pos"])
                 st["new"].append(nc)
             for st in states:            # stage 2: M2N cycles
                 st["x"] = self._ffn(i, spec, st["x"])
@@ -269,11 +291,9 @@ class AFDRuntime:
                                                      device=pos.device))
         new_caches = []
         for i, spec in enumerate(self.specs):
-            lp = self.a_params["layers"][i]
-            h = apply_norm(lp["ln1"], self.cfg, x)
-            mix, nc = attn_mod.attention_prefill_cached(
-                lp["attn"], self.cfg, h, caches[i], pos, impl=self.impl)
-            x = self._ffn(i, spec, x + mix)
+            x, nc = self._mixer_chunk(self.a_params["layers"][i], spec, x,
+                                      caches[i], pos)
+            x = self._ffn(i, spec, x)
             new_caches.append(nc)
         return self._head(x), new_caches, pos + c
 

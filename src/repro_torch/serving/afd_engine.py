@@ -225,14 +225,20 @@ class AFDServeEngine:
         self._moe_layers = sum(1 for s in runtime.specs if s.moe)
         self._dtype_bytes = self.cfg.compute_dtype.itemsize
 
-        # KV footprint: 2·n_kv·d_head bytes per cached token per attention
-        # layer, ring-capped for sliding-window archs.
+        # Cache footprint: attention layers cost 2·n_kv·d_head bytes per
+        # cached token (ring-capped for sliding-window archs); Mamba layers
+        # cost their conv tail and float32 state, O(1) per slot.
         cfg = self.cfg
         self._kv_ring_len = attn_cache_len(cfg, max_len)
         self._kv_token_bytes = sum(
             2 * cfg.n_kv_heads * cfg.d_head * self._dtype_bytes
             for s in runtime.specs if s.kind == "attn")
-        self.kv_slot_bytes = self._kv_token_bytes * self._kv_ring_len
+        self._kv_static_bytes = sum(
+            (cfg.ssm_conv - 1) * cfg.conv_dim * self._dtype_bytes
+            + cfg.ssm_heads * cfg.ssm_head_dim * cfg.ssm_state * 4
+            for s in runtime.specs if s.kind == "mamba")
+        self.kv_slot_bytes = (self._kv_static_bytes
+                              + self._kv_token_bytes * self._kv_ring_len)
         # Default budget = the preallocated cache (one full slot each).
         self.kv_budget_bytes = (kv_budget_bytes if kv_budget_bytes is not None
                                 else self.total_slots * self.kv_slot_bytes)
@@ -284,7 +290,7 @@ class AFDServeEngine:
         """Worst-case KV footprint reserved for one request at admission."""
         toks = min(prompt_len + max_new_tokens, self.max_len,
                    self._kv_ring_len)
-        return self._kv_token_bytes * toks
+        return self._kv_static_bytes + self._kv_token_bytes * toks
 
     def kv_occupancy_bytes(self) -> int:
         return sum(self.kv_request_bytes(len(r.prompt), r.max_new_tokens)
@@ -533,14 +539,15 @@ class AFDServeEngine:
 
     def _finish_prefill(self, mb_i: int, slot: int, logits) -> None:
         """Splice the prefilled cache into the batch slot (one slab write
-        per attention plane) and emit the first token this same tick."""
+        per attention plane; a Mamba layer's whole conv tail and state) and
+        emit the first token this same tick."""
         mb = self.mbs[mb_i]
         pf = mb.prefill.pop(slot)
         req = pf.req
         n_tok = min(len(req.prompt), self._kv_ring_len)
         for li in range(len(mb.caches)):
             src = pf.caches[li]
-            if n_tok < self._kv_ring_len:
+            if self.rt.specs[li].kind == "attn" and n_tok < self._kv_ring_len:
                 src = {kk: vv[:, :n_tok] for kk, vv in src.items()}
             splice_batch_slot(mb.caches[li], src, slot, self.mb_slots)
         mb.pos[slot] = len(req.prompt)

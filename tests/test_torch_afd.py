@@ -150,6 +150,68 @@ def test_engine_matches_jax(jax_setups, chunk):
     assert outs == {r.rid: r.output for r in jeng.completed}
 
 
+def _fleet_shape_logits(rt, to_tensor, to_numpy, toks):
+    """The fleet path check's sequence: 12 legacy-prefill steps of one
+    sequence into a 32-slot cache, then 32 ``decode_step_3bo`` steps of a
+    2-slot micro-batch, its second slot reset to position 0 halfway."""
+    out = []
+    caches, pos = rt.init_cache(1, 32)
+    for j in range(12):
+        lg, caches, pos = rt.decode_step(to_tensor(toks[0, j:j + 1]),
+                                         caches, pos)
+        out.append(to_numpy(lg))
+    caches, pos = rt.init_cache(2, 32)
+    for j in range(32):
+        if j == 16:
+            pos = (pos.at[1].set(0) if isinstance(pos, jax.Array)
+                   else torch.tensor([int(pos[0]), 0], dtype=pos.dtype))
+        ((lg, caches, pos),) = rt.decode_step_3bo(
+            [(to_tensor(toks[:, j]), caches, pos)], n_bo=1)
+        out.append(to_numpy(lg))
+    return np.concatenate(out)
+
+
+def test_plain_runtime_matches_jax_bf16_at_fleet_shapes(monkeypatch):
+    """The port's plain runtime against JAX's AFDRuntime on the same bf16
+    weights, through the card's fleet path check sequence at smoke width.
+    The two round bf16 at different places, and a near-tie in top-k routing
+    may flip an expert; both are allowed, so the logits are held to the
+    card's path gate (relative error 5e-2) and every router input (the
+    normed hidden state of every MoE layer and step) to the same bound."""
+    import dataclasses
+    from repro.parallel import afd as jafd
+    from repro_torch.parallel import afd as tafd
+    arch = "granite-moe-1b-a400m"
+    jcfg = dataclasses.replace(jconfigs.get_smoke_config(arch),
+                               dtype="bfloat16", param_dtype="bfloat16")
+    tcfg = dataclasses.replace(tconfigs.get_smoke_config(arch),
+                               dtype="bfloat16", param_dtype="bfloat16")
+    jp = make_model(jcfg).init(jax.random.PRNGKey(0))
+    tp = params_from_jax(tcfg, _numpy_tree(jp), "cpu")
+    hidden = {"jax": [], "port": []}
+    for key, mod, to_np in (("jax", jafd, lambda x: np.asarray(x, np.float32)),
+                            ("port", tafd, lambda x: x.float().numpy())):
+        route = mod.moe_mod.route
+
+        def recording(params, cfg, x, route=route, key=key, to_np=to_np):
+            hidden[key].append(to_np(x))
+            return route(params, cfg, x)
+        monkeypatch.setattr(mod.moe_mod, "route", recording)
+    toks = np.random.default_rng(9).integers(1, tcfg.vocab_size,
+                                             (2, 32)).astype(np.int32)
+    devs = jax.devices()
+    want = _fleet_shape_logits(JAFDRuntime(jcfg, jp, [devs[0]], [devs[-1]]),
+                               jnp.asarray, np.asarray, toks)
+    got = _fleet_shape_logits(AFDRuntime(tcfg, tp, device="cpu"),
+                              torch.from_numpy, lambda x: x.float().numpy(),
+                              toks)
+    assert got.shape == want.shape == (12 + 2 * 32, tcfg.vocab_size)
+    assert np.linalg.norm(got - want) / np.linalg.norm(want) <= 5e-2
+    assert len(hidden["port"]) == len(hidden["jax"]) == 44 * tcfg.n_layers
+    for g, w in zip(hidden["port"], hidden["jax"]):
+        assert np.linalg.norm(g - w) / np.linalg.norm(w) <= 5e-2
+
+
 def test_engine_kv_budget_caps_admission(port_runtime):
     """A budget below one request's KV reservation admits one request at a
     time (an empty batch always admits), so every request still completes
@@ -225,7 +287,9 @@ def test_port_imports_no_jax_and_no_repro():
         "imbalance", "planner")} | {"repro_torch.api.registry",
                                     "repro_torch.serving.scheduler"} | {
         f"repro_torch.fleet.{m}" for m in (
-            "events", "router", "rescaler", "controller")} <= imported
+            "events", "router", "rescaler", "controller")} | {
+        "repro_torch.models.mamba2", "repro_torch.provision.calibrate",
+        "repro_torch.configs.jamba_v0_1_52b"} <= imported
 
 
 def test_runtime_defaults_to_cuda():
@@ -242,7 +306,9 @@ def test_runtime_defaults_to_cuda():
 
 @pytest.mark.parametrize("change,error", [
     (dict(n_experts=0, top_k=0, d_ff=64), ValueError),          # dense
-    (dict(ssm_state=16, attn_layer_period=2), NotImplementedError),  # Mamba
+    # a hybrid SSM with no routed experts has no F role either
+    (dict(n_experts=0, top_k=0, ssm_state=16, attn_layer_period=2),
+     ValueError),
 ], ids=["dense", "mamba"])
 def test_runtime_refuses_unported_configs(change, error):
     import dataclasses
