@@ -7,6 +7,9 @@
         [--replicas 3 | --replica-shapes 2x2,1x4] [--router round-robin] \
         [--fail T:REPLICA[:FRAC]] [--no-rescale] [--device cuda|cpu] ...
     python -m repro_torch calibrate [--device cuda|cpu]
+    python -m repro_torch serve --arch qwen3-8b [--preset smoke|100m|full] \
+        [--mode ep|afd] [--slots 4] [--requests 16] [--fail-at T] \
+        [--device cuda|cpu] ...
 
 ``serve-traffic`` runs the two-role AFD serving engine (``AFDRuntime`` +
 ``AFDServeEngine``) on the smoke config of ``--arch`` with random weights
@@ -24,6 +27,11 @@ one parameter tree on the device.
 ``calibrate`` runs ``repro_torch.provision.calibrate`` with the JAX
 package's defaults (the counterpart of ``python -m repro provision
 --calibrate``'s calibration) and prints its report as JSON.
+
+``serve`` is ``repro_torch.launch.serve``, the counterpart of ``python -m
+repro.launch.serve`` with its flags: the single-program model behind the
+continuous-batching ``DecodeEngine`` (``--mode ep``), or AFD decode steps
+(``--mode afd``).
 
 ``serve-traffic`` and ``serve-fleet`` exit 1 if measured M2N bytes
 diverge from the Eq. 9/17 prediction (``serve-fleet`` also if a request
@@ -45,8 +53,9 @@ def cmd_serve_traffic(args) -> int:
     from repro_torch import configs
     from repro_torch.api import registry
     from repro_torch.core import planner as pln
+    from repro_torch.models.common import resolve_device
     from repro_torch.models.params import init_params
-    from repro_torch.parallel.afd import AFDRuntime, resolve_device
+    from repro_torch.parallel.afd import AFDRuntime
     from repro_torch.serving.afd_engine import AFDServeEngine, HFUProbe
     from repro_torch.serving.scheduler import SLOConfig, SLOScheduler
     from repro_torch.serving.workload import generate_trace, get_profile
@@ -174,8 +183,9 @@ def cmd_serve_fleet(args) -> int:
     from repro_torch.core import planner as pln
     from repro_torch.fleet.controller import FleetController, FleetReplica
     from repro_torch.fleet.rescaler import ElasticRescaler
+    from repro_torch.models.common import resolve_device
     from repro_torch.models.params import init_params
-    from repro_torch.parallel.afd import AFDRuntime, resolve_device
+    from repro_torch.parallel.afd import AFDRuntime
     from repro_torch.serving.afd_engine import AFDServeEngine, HFUProbe
     from repro_torch.serving.workload import generate_trace, get_profile
 
@@ -297,9 +307,11 @@ def _write_json(doc, path: Optional[str]) -> None:
 
 def build_parser() -> argparse.ArgumentParser:
     from repro_torch.api.registry import list_routers
-    from repro_torch.configs import ARCH_IDS
+    from repro_torch.configs import ARCH_IDS, get_smoke_config
     from repro_torch.serving.workload import list_profiles
 
+    # the AFD engines serve the archs with routed experts
+    moe_archs = [a for a in ARCH_IDS if get_smoke_config(a).is_moe]
     p = argparse.ArgumentParser(prog="python -m repro_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
     st = sub.add_parser("serve-traffic",
@@ -308,7 +320,7 @@ def build_parser() -> argparse.ArgumentParser:
     st.add_argument("--profile", default="poisson-burst",
                     choices=list_profiles())
     st.add_argument("--arch", default="granite-moe-1b-a400m",
-                    choices=ARCH_IDS)
+                    choices=moe_archs)
     st.add_argument("--hardware", default="H800",
                     help="hardware spec for the live Eq. 9/HFU probe")
     st.add_argument("--seed", type=int, default=0)
@@ -343,7 +355,7 @@ def build_parser() -> argparse.ArgumentParser:
                              "elastic N_F")
     sf.add_argument("--profile", required=True, choices=list_profiles())
     sf.add_argument("--arch", default="granite-moe-1b-a400m",
-                    choices=ARCH_IDS)
+                    choices=moe_archs)
     sf.add_argument("--hardware", default="H800",
                     help="hardware spec for the HFU probe and the rescaler")
     sf.add_argument("--replicas", type=int, default=3)
@@ -388,12 +400,22 @@ def build_parser() -> argparse.ArgumentParser:
                     help="torch device (default cuda; cpu for the plain "
                          "PyTorch path)")
     ca.set_defaults(fn=cmd_calibrate)
+
+    # parsed by repro_torch.launch.serve itself (see main)
+    sub.add_parser("serve", add_help=False,
+                   help="single-program model behind the continuous-"
+                        "batching DecodeEngine (python -m repro_torch serve "
+                        "--help for its flags)")
     return p
 
 
 def main(argv: Optional[List[str]] = None) -> int:
-    args = build_parser().parse_args(argv)
+    argv = sys.argv[1:] if argv is None else list(argv)
     try:
+        if argv[:1] == ["serve"]:
+            from repro_torch.launch import serve
+            return serve.main(argv[1:])
+        args = build_parser().parse_args(argv)
         return args.fn(args)
     except (KeyError, ValueError) as e:
         # Registry lookups and parameter checks raise with the known names

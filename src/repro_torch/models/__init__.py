@@ -1,2 +1,2 @@
-"""Model pieces of the AFD path: config, layers, KV cache, attention,
-MoE routing and parameter init."""
+"""The model: config, layers, KV and SSM caches, attention, Mamba-2, MoE,
+parameter init, the decoder stack and the single-program ``Model``."""

@@ -1,5 +1,6 @@
 """Attention mixer: GQA with optional QKV bias and qk-norm, full or
-sliding-window KV caches. Counterpart of ``repro.models.attention``.
+sliding-window KV caches, and cross-attention over static encoder K/V
+(whisper). Counterpart of ``repro.models.attention``.
 
 GQA is computed in grouped form: q is reshaped to (B, S, n_kv, group, d)
 and contracted against (B, T, n_kv, d) keys directly.
@@ -18,6 +19,10 @@ Kernel routing (``impl`` as in ``kernels.ops``: None picks by device):
 The plain path (CPU tensors or ``impl="plain"``) is the dense masked form
 of the JAX package's default, so chunked prefill stays bit-exact against
 token-by-token decode on it.
+
+``attention_prefill`` (the single-program model's full-sequence prefill)
+and ``cross_attention`` run no kernel: the JAX package computes both dense
+and masked, outside any Pallas call, and so does the port.
 """
 
 from __future__ import annotations
@@ -82,6 +87,86 @@ def gqa_scores_softmax_out(cfg: ArchConfig, q: torch.Tensor, k: torch.Tensor,
 
 def _output_proj(params, x_attn: torch.Tensor) -> torch.Tensor:
     return x_attn @ params["wo"].to(x_attn.dtype)
+
+
+def causal_mask(cfg: ArchConfig, s: int, t: Optional[int] = None,
+                device=None) -> torch.Tensor:
+    """(1, 1, 1, S, T) causal (+ sliding window) mask for prefill.
+    Bidirectional stacks (``cfg.causal=False``, the whisper encoder) see
+    every key."""
+    t = t if t is not None else s
+    if not cfg.causal:
+        return torch.ones((1, 1, 1, s, t), dtype=torch.bool, device=device)
+    rows = torch.arange(s, device=device)[:, None]
+    cols = torch.arange(t, device=device)[None, :]
+    m = cols <= rows
+    if cfg.sliding_window is not None:
+        m = m & (rows - cols < cfg.sliding_window)
+    return m[None, None, None]
+
+
+# Above this many query positions (and at a multiple of it), prefill scores
+# one query chunk at a time: peak score memory O(chunk × S), not O(S²).
+PREFILL_CHUNK = 1024
+
+
+def _chunked_causal_attention(cfg: ArchConfig, q: torch.Tensor,
+                              k: torch.Tensor, v: torch.Tensor,
+                              chunk: int) -> torch.Tensor:
+    """Causal attention one (B, chunk, Hq, d) query block at a time against
+    the full key set, under a global-position causal (+ window) mask. A
+    Python loop over the chunks stands in for JAX's ``lax.scan``."""
+    b, s, hq, d = q.shape
+    cols = torch.arange(s, device=q.device)[None, :]
+    outs = []
+    for ci in range(s // chunk):
+        rows = ci * chunk + torch.arange(chunk, device=q.device)[:, None]
+        m = cols <= rows
+        if cfg.sliding_window is not None:
+            m = m & (rows - cols < cfg.sliding_window)
+        if not cfg.causal:
+            m = torch.ones_like(m)
+        outs.append(gqa_scores_softmax_out(
+            cfg, q[:, ci * chunk:(ci + 1) * chunk], k, v, m[None, None, None]))
+    return torch.cat(outs, dim=1)
+
+
+def attention_prefill(params, cfg: ArchConfig, x: torch.Tensor,
+                      positions: torch.Tensor,
+                      cache: Optional[kvcache.Cache] = None
+                      ) -> Tuple[torch.Tensor, Optional[kvcache.Cache]]:
+    """Full-sequence attention over x (B, S, D) at positions (B, S); with a
+    cache, its K/V are written from position 0 (``write_kv_prefill``)."""
+    q = _project_q(params, cfg, x)
+    k, v = _project_kv(params, cfg, x)
+    if cfg.use_rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    s = x.shape[1]
+    if s > PREFILL_CHUNK and s % PREFILL_CHUNK == 0:
+        out = _chunked_causal_attention(cfg, q, k, v, PREFILL_CHUNK)
+    else:
+        out = gqa_scores_softmax_out(cfg, q, k, v,
+                                     causal_mask(cfg, s, device=x.device))
+    if cache is not None:
+        cache = kvcache.write_kv_prefill(cfg, cache, k, v)
+    return _output_proj(params, out), cache
+
+
+def cross_attention(params, cfg: ArchConfig, x: torch.Tensor,
+                    enc_k: torch.Tensor, enc_v: torch.Tensor,
+                    enc_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Decoder cross-attention over static encoder K/V (whisper)."""
+    q = _project_q(params, cfg, x)
+    mask = None if enc_mask is None else enc_mask[:, None, None, None, :]
+    return _output_proj(params, gqa_scores_softmax_out(cfg, q, enc_k, enc_v,
+                                                       mask))
+
+
+def project_cross_kv(params, cfg: ArchConfig, enc_out: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Encoder K/V of one decoder layer, computed once per request."""
+    return _project_kv(params, cfg, enc_out)
 
 
 def attention_prefill_cached(params, cfg: ArchConfig, x: torch.Tensor,

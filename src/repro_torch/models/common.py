@@ -74,9 +74,13 @@ class ArchConfig:
     ssm_groups: int = 1
     ssm_chunk: int = 64
 
-    # encoder-decoder / VLM frontends (not carried by the port yet)
+    # encoder-decoder (whisper): the frontend is a stub, the encoder takes
+    # precomputed frame embeddings (B, encoder_seq, d_model)
     n_encoder_layers: int = 0
     encoder_seq: int = 0
+
+    # VLM: the frontend is a stub, precomputed patch embeddings
+    # (B, vision_seq, d_model) are prepended to the token embeddings
     vision_seq: int = 0
 
     # misc
@@ -177,6 +181,73 @@ class ArchConfig:
         return best
 
 
+    # ---- parameter counting ------------------------------------------------
+
+    def param_count(self) -> int:
+        """The JAX package's formula, term for term. It counts a dense FFN
+        on attention layers only (``elif spec.kind == "attn"``), while the
+        model builds one on every non-MoE layer when ``d_ff > 0``
+        (``transformer.has_ffn``): for hybrids with dense FFNs on Mamba
+        layers (Jamba) the count is short of the tree's. Kept as the
+        reference has it; ``tree_count`` counts the tree."""
+        D, V = self.d_model, self.vocab_size
+        total = V * D                                   # embedding
+        if not self.tie_embeddings:
+            total += D * V                              # lm head
+        for i in range(self.n_layers):
+            spec = self.layer_spec(i)
+            if spec.kind == "attn":
+                total += D * self.q_dim + 2 * D * self.kv_dim + self.q_dim * D
+                if self.qkv_bias:
+                    total += self.q_dim + 2 * self.kv_dim
+            else:
+                total += (D * (2 * self.d_inner + 2 * self.ssm_groups *
+                               self.ssm_state + self.ssm_heads)
+                          + self.ssm_conv * self.conv_dim + self.conv_dim
+                          + 3 * self.ssm_heads + self.d_inner
+                          + self.d_inner * D)
+            if spec.moe:
+                total += D * self.n_experts             # router
+                total += self.n_experts * 3 * D * self.moe_d_ff
+                if self.n_shared_experts:
+                    total += 3 * D * (self.shared_d_ff or self.moe_d_ff
+                                      ) * self.n_shared_experts
+            elif spec.kind == "attn" and self.d_ff:
+                total += 3 * D * self.d_ff
+            total += 2 * D                              # two norms
+        total += D                                      # final norm
+        if self.is_encdec:
+            total += self.n_encoder_layers * (4 * D * D + 3 * D * self.d_ff
+                                              + 2 * D)
+            total += self.n_layers * (4 * D * D + D)    # cross attention
+            total += self.encoder_seq * D + self.max_decode_positions() * D
+        return total
+
+    def max_decode_positions(self) -> int:
+        """Rows of the learned position table (whisper caps them at 448)."""
+        return 448 if self.family == "audio" else self.max_position
+
+    def active_param_count(self) -> int:
+        """Activated params per token (MoE: top-k + shared experts only)."""
+        if not self.is_moe:
+            return self.param_count()
+        total = self.param_count()
+        moe_layers = sum(self.is_moe_layer(i) for i in range(self.n_layers))
+        per = 3 * self.d_model * self.moe_d_ff
+        return (total - moe_layers * self.n_experts * per
+                + moe_layers * self.top_k * per)
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` means the CUDA device; asking for CUDA without one raises
+    (the port never carries on on the CPU unless told to)."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass device='cpu' "
+                           "to run the port on the CPU")
+    return dev
+
+
 # ---------------------------------------------------------------------------
 # Initializers
 # ---------------------------------------------------------------------------
@@ -204,3 +275,24 @@ def embed_init(seed: int, name: str, shape: Sequence[int], dtype,
     x = torch.randn(tuple(shape), generator=_generator(seed, name, device),
                     device=device, dtype=torch.float32)
     return (x * 0.02).to(dtype)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v)
+    elif isinstance(tree, torch.Tensor):
+        yield tree
+
+
+def tree_bytes(tree) -> int:
+    """Bytes of every tensor in a nested dict/list tree."""
+    return sum(t.numel() * t.element_size() for t in _leaves(tree))
+
+
+def tree_count(tree) -> int:
+    """Elements of every tensor in a nested dict/list tree."""
+    return sum(t.numel() for t in _leaves(tree))

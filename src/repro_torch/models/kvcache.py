@@ -11,6 +11,12 @@ Counterpart of ``repro.models.kvcache``.
 The writers update the cache tensors in place and return the same dict
 (the JAX versions return new arrays): a decode step then moves one row per
 sequence instead of copying the cache.
+
+The whole-model cache of ``models.model`` is flat, one entry per layer:
+``{"layers": [per-layer cache], "pos": (B,) int32}``, plus ``"cross_kv"``
+(one (k, v) per decoder layer, None for Mamba layers) for enc-dec archs.
+It is the counterpart of JAX's ``{"prefix": [...], "stack": [...]}``
+with the stacked periods laid out layer by layer.
 """
 
 from __future__ import annotations
@@ -19,7 +25,7 @@ from typing import Dict
 
 import torch
 
-from repro_torch.models.common import ArchConfig, LayerSpec
+from repro_torch.models.common import ArchConfig, LayerSpec, tree_bytes
 
 Cache = Dict[str, torch.Tensor]
 
@@ -51,6 +57,20 @@ def init_layer_cache(cfg: ArchConfig, spec: LayerSpec, batch: int,
     if spec.kind == "mamba":
         return init_ssm_cache(cfg, batch, device)
     return init_attn_cache(cfg, batch, max_len, device)
+
+
+def init_cache(cfg: ArchConfig, batch: int, max_len: int,
+               device) -> Dict[str, object]:
+    """Whole-model cache, every layer's at position 0. The cross-attention
+    K/V of enc-dec archs is attached by ``Model.prefill``."""
+    return {"layers": [init_layer_cache(cfg, spec, batch, max_len, device)
+                       for spec in cfg.layer_plan().flat()],
+            "pos": torch.zeros(batch, dtype=torch.int32, device=device)}
+
+
+def cache_bytes(cache) -> int:
+    """Bytes of every tensor in a cache tree."""
+    return tree_bytes(cache)
 
 
 def write_kv(cfg: ArchConfig, cache: Cache, k_new: torch.Tensor,
@@ -97,6 +117,29 @@ def write_kv_chunk(cfg: ArchConfig, cache: Cache, k_new: torch.Tensor,
     for name, new in (("k", k_new), ("v", v_new)):
         plane = cache[name]
         plane[bidx[keep], slot[keep]] = new.to(plane.dtype)[keep]
+    return cache
+
+
+def write_kv_prefill(cfg: ArchConfig, cache: Cache, k: torch.Tensor,
+                     v: torch.Tensor) -> Cache:
+    """Bulk-write a prefill segment (B, S, n_kv, d_head) starting at
+    position 0.
+
+    A ring cache shorter than the segment keeps its last ``t`` positions,
+    position p in slot p mod t, so that decode writes continue the ring.
+    A full cache keeps positions below T and drops the rest, as ``write_kv``
+    drops writes at ``pos >= T``.
+    """
+    t = cache["k"].shape[1]
+    s = k.shape[1]
+    for name, new in (("k", k), ("v", v)):
+        plane = cache[name]
+        if cfg.sliding_window is not None and s > t:
+            slots = torch.arange(s - t, s, device=plane.device) % t
+            plane[:, slots] = new[:, s - t:].to(plane.dtype)
+        else:
+            n = min(s, t)
+            plane[:, :n] = new[:, :n].to(plane.dtype)
     return cache
 
 

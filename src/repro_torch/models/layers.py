@@ -11,7 +11,16 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import ArchConfig, dense_init
+from repro_torch.models.common import ArchConfig, dense_init, embed_init
+
+
+def init_norm(cfg: ArchConfig, device) -> Dict[str, torch.Tensor]:
+    """Norm scale of ones (and a zero bias for LayerNorm archs)."""
+    d, dt = cfg.d_model, cfg.params_dtype
+    p = {"scale": torch.ones(d, dtype=dt, device=device)}
+    if cfg.norm_type == "layernorm":
+        p["bias"] = torch.zeros(d, dtype=dt, device=device)
+    return p
 
 
 def apply_norm(params, cfg: ArchConfig, x: torch.Tensor,
@@ -71,12 +80,20 @@ def activation(cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
 
 def init_mlp(seed: int, name: str, cfg: ArchConfig, device,
              d_ff: int) -> Dict[str, torch.Tensor]:
-    """Gated MLP params: fused [gate; up] ``wi`` (D, 2F) and ``wo`` (F, D)."""
+    """Gated MLP params: fused [gate; up] ``wi`` (D, 2F) and ``wo`` (F, D).
+    For gelu archs (whisper) the layer is a plain two-matrix MLP with
+    biases: ``wi`` (D, F), ``bi``, ``wo``, ``bo``."""
     D = cfg.d_model
-    return {"wi": dense_init(seed, f"{name}.wi", (D, 2 * d_ff),
-                             cfg.params_dtype, device, fan_in=D),
-            "wo": dense_init(seed, f"{name}.wo", (d_ff, D), cfg.params_dtype,
-                             device, fan_in=d_ff)}
+    gated = cfg.act != "gelu"
+    p = {"wi": dense_init(seed, f"{name}.wi",
+                          (D, 2 * d_ff if gated else d_ff),
+                          cfg.params_dtype, device, fan_in=D),
+         "wo": dense_init(seed, f"{name}.wo", (d_ff, D), cfg.params_dtype,
+                          device, fan_in=d_ff)}
+    if not gated:
+        p["bi"] = torch.zeros(d_ff, dtype=cfg.params_dtype, device=device)
+        p["bo"] = torch.zeros(D, dtype=cfg.params_dtype, device=device)
+    return p
 
 
 def apply_mlp(params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
@@ -93,6 +110,19 @@ def apply_mlp(params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def init_embedding(seed: int, cfg: ArchConfig,
+                   device) -> Dict[str, torch.Tensor]:
+    """Token table, plus a learned position table of
+    ``max_decode_positions()`` rows for archs without RoPE (whisper)."""
+    p = {"tok": embed_init(seed, "embed.tok", (cfg.vocab_size, cfg.d_model),
+                           cfg.params_dtype, device)}
+    if not cfg.use_rope:
+        p["pos"] = embed_init(seed, "embed.pos",
+                              (cfg.max_decode_positions(), cfg.d_model),
+                              cfg.params_dtype, device)
+    return p
+
+
 def embed_tokens(params, cfg: ArchConfig, tokens: torch.Tensor,
                  positions: Optional[torch.Tensor] = None) -> torch.Tensor:
     x = params["tok"][tokens.long()].to(cfg.compute_dtype)
@@ -101,6 +131,15 @@ def embed_tokens(params, cfg: ArchConfig, tokens: torch.Tensor,
         x = x + params["pos"][positions.long().clamp(0, cap - 1)].to(
             cfg.compute_dtype)
     return x
+
+
+def init_lm_head(seed: int, cfg: ArchConfig,
+                 device) -> Dict[str, torch.Tensor]:
+    """Untied head (D, V); a tied head has no parameters of its own."""
+    if cfg.tie_embeddings:
+        return {}
+    return {"w": dense_init(seed, "lm_head.w", (cfg.d_model, cfg.vocab_size),
+                            cfg.params_dtype, device, fan_in=cfg.d_model)}
 
 
 def apply_lm_head(head_params, embed_params, cfg: ArchConfig,

@@ -1,27 +1,34 @@
-"""Mamba-2 (SSD, state-space duality) mixer: the O(1)-per-token decode
-step the AFD serving path runs. Counterpart of ``repro.models.mamba2``'s
-``init_mamba`` and ``mamba_decode``; the chunked SSD prefill
-(``ssd_chunked``, ``ssd_sequential``, ``mamba_prefill``) belongs to the
-single-program model, which the port does not carry yet. The AFD
-runtime's chunked prefill steps ``mamba_decode`` over the chunk, as the
-JAX runtime does.
+"""Mamba-2 (SSD, state-space duality) mixer. Counterpart of
+``repro.models.mamba2``, with its two execution paths:
+
+  * ``mamba_prefill`` — the chunked SSD algorithm (``ssd_chunked``: the
+    block-diagonal "attention-like" term inside each chunk plus the
+    low-rank state carried between chunks), which also returns the final
+    recurrent state for the cache. The single-program model's prefill and
+    forward run it;
+  * ``mamba_decode`` — the O(1)-per-token recurrence: conv tail plus SSM
+    state update. The AFD runtime's chunked prefill steps it over the
+    chunk, as the JAX runtime does.
+
+``ssd_sequential`` is the per-step recurrence that ``ssd_chunked`` is held
+to.
 
 Layout (the reference Mamba-2's):
   in_proj:  D → [z (d_inner) | xBC (d_inner + 2·g·n) | dt (heads)]
   conv:     depthwise causal conv over xBC, width ssm_conv
   heads:    d_inner = heads · head_dim; B/C shared across head groups (g)
 
-Types follow the JAX step: the projections, the conv window and the
-``D·x`` skip run in the activation dtype; ``dt``, its softplus,
-``A = -exp(A_log)`` and the recurrent state are float32, and ``y`` is cast
-to the activation dtype before the skip is added. ``A_log``, ``D`` and
+Types follow JAX: the projections, the conv and the ``D·x`` skip run in
+the activation dtype; ``dt``, its softplus, ``A = -exp(A_log)``, the SSD
+products and the recurrent state are float32, and ``y`` is cast to the
+activation dtype before the skip is added. ``A_log``, ``D`` and
 ``dt_bias`` are float32 whatever the parameter dtype. No kernel: the JAX
-package has none for this layer, and its products are small einsums.
+package has none for this layer.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -71,6 +78,139 @@ def _broadcast_groups(cfg: ArchConfig, t: torch.Tensor) -> torch.Tensor:
     bs, s, _ = t.shape
     g, n, h = cfg.ssm_groups, cfg.ssm_state, cfg.ssm_heads
     return t.reshape(bs, s, g, n).repeat_interleave(h // g, dim=2)
+
+
+def causal_conv(cfg: ArchConfig, x: torch.Tensor, w: torch.Tensor,
+                b: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv over (B, S, C), width ``cfg.ssm_conv``."""
+    pad = cfg.ssm_conv - 1
+    s = x.shape[1]
+    xp = F.pad(x, (0, 0, pad, 0))
+    acc = torch.zeros_like(x)
+    for i in range(cfg.ssm_conv):
+        acc = acc + xp[:, i:i + s] * w[i].to(x.dtype)
+    return acc + b.to(x.dtype)
+
+
+def _segsum(x: torch.Tensor) -> torch.Tensor:
+    """Stable segment sum: out[..., i, j] = x[..., j+1] + ... + x[..., i]
+    on and below the diagonal, -inf above it."""
+    t = x.shape[-1]
+    cs = torch.cumsum(x, dim=-1)
+    seg = cs[..., :, None] - cs[..., None, :]
+    mask = torch.ones((t, t), dtype=torch.bool, device=x.device).tril()
+    return seg.masked_fill(~mask, float("-inf"))
+
+
+def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                b: torch.Tensor, c: torch.Tensor, chunk: int,
+                init_state: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked SSD, one chunk at a time (a Python loop in place of JAX's
+    ``lax.scan``).
+
+    x: (B, S, H, P) head inputs; dt: (B, S, H), already softplus'd;
+    a: (H,) negative decay rates; b, c: (B, S, H, N), group-broadcast.
+    Returns (y (B, S, H, P) in x's dtype, final_state (B, H, P, N) float32).
+    S must be a multiple of ``chunk``.
+
+    JAX writes each chunk as 3- and 4-operand einsums. Here every product
+    is one batched matmul over (B, H) with a named intermediate, so no
+    contraction order can materialise a (B, L, L, H, N) tensor: the largest
+    is the (B, H, L, L) score block, O(B·H·chunk²) per chunk.
+    """
+    bs, s, h, p = x.shape
+    n = b.shape[-1]
+    f32 = torch.float32
+    xd = (x * dt[..., None]).to(f32)                       # dt-weighted input
+    da = (dt * a[None, None, :]).to(f32)                   # (B, S, H) ≤ 0
+    state = (torch.zeros((bs, h, p, n), dtype=f32, device=x.device)
+             if init_state is None else init_state.to(f32))
+    ys = []
+    for k0 in range(0, s, chunk):
+        sl = slice(k0, k0 + chunk)
+        xk = xd[:, sl].permute(0, 2, 1, 3)                 # (B, H, L, P)
+        bk = b[:, sl].to(f32).permute(0, 2, 1, 3)          # (B, H, L, N)
+        ck = c[:, sl].to(f32).permute(0, 2, 1, 3)          # (B, H, L, N)
+        dak = da[:, sl].permute(0, 2, 1)                   # (B, H, L)
+        a_cs = torch.cumsum(dak, dim=-1)                   # (B, H, L)
+        # intra-chunk: y_diag[l] = Σ_s (C_l · B_s) exp(segsum)[l, s] x_s
+        scores = ck @ bk.transpose(-1, -2)                 # (B, H, L, L)
+        y = (scores * torch.exp(_segsum(dak))) @ xk        # (B, H, L, P)
+        # the carried state's contribution: exp(a_cs[l]) · C_l · state
+        y = y + (ck @ state.transpose(-1, -2)) * torch.exp(a_cs)[..., None]
+        # carry: decay over the chunk plus this chunk's inputs
+        decay = torch.exp(a_cs[..., -1:] - a_cs)           # (B, H, L)
+        chunk_state = (xk * decay[..., None]).transpose(-1, -2) @ bk
+        state = state * torch.exp(a_cs[..., -1])[..., None, None] \
+            + chunk_state                                  # (B, H, P, N)
+        ys.append(y.permute(0, 2, 1, 3))                   # (B, L, H, P)
+    return torch.cat(ys, dim=1).to(x.dtype), state
+
+
+def ssd_sequential(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                   b: torch.Tensor, c: torch.Tensor,
+                   init_state: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The per-step recurrence, in float32: the oracle ``ssd_chunked`` is
+    held to. Same arguments and returns, without ``chunk``."""
+    bs, s, h, p = x.shape
+    n = b.shape[-1]
+    f32 = torch.float32
+    state = (torch.zeros((bs, h, p, n), dtype=f32, device=x.device)
+             if init_state is None else init_state.to(f32))
+    ys = []
+    for t in range(s):
+        xt, dtt = x[:, t].to(f32), dt[:, t].to(f32)          # (B,H,P), (B,H)
+        bt, ct = b[:, t].to(f32), c[:, t].to(f32)            # (B,H,N)
+        da = torch.exp(dtt * a[None, :])[..., None, None]
+        upd = (dtt[..., None] * xt)[..., None] * bt[:, :, None, :]
+        state = state * da + upd
+        ys.append(torch.einsum("bhpn,bhn->bhp", state, ct))
+    return torch.stack(ys, dim=1).to(x.dtype), state
+
+
+def mamba_prefill(params, cfg: ArchConfig, x: torch.Tensor,
+                  cache: Optional[Dict[str, torch.Tensor]] = None
+                  ) -> Tuple[torch.Tensor,
+                             Optional[Dict[str, torch.Tensor]]]:
+    """Full-sequence SSD from a zero state. x: (B, S, D). Returns (out
+    (B, S, D), with a cache: a new cache dict holding the conv tail and the
+    final state; the input cache is not modified)."""
+    bs, s, _ = x.shape
+    zxbcdt = x @ params["in_proj"].to(x.dtype)
+    z, x_bc_raw, dt_raw = _split_proj(cfg, zxbcdt)
+
+    x_bc = F.silu(causal_conv(cfg, x_bc_raw, params["conv_w"],
+                              params["conv_b"]))
+    xh, b, c = _split_xbc(cfg, x_bc)
+    dt = F.softplus(dt_raw.float() + params["dt_bias"][None, None, :])
+
+    # pad S to a chunk multiple; padded steps get dt = 0 (no decay, no
+    # input), so states and outputs are unaffected
+    chunk = min(cfg.ssm_chunk, s) or 1
+    pad = (-s) % chunk
+    if pad:
+        xh, b, c, dt = (F.pad(t, (0, 0, 0, pad)) for t in (xh, b, c, dt))
+
+    a = -torch.exp(params["A_log"])
+    xheads = xh.reshape(bs, s + pad, cfg.ssm_heads, cfg.ssm_head_dim)
+    y, final_state = ssd_chunked(xheads, dt, a, _broadcast_groups(cfg, b),
+                                 _broadcast_groups(cfg, c), chunk)
+    y = y[:, :s] + (params["D"].to(y.dtype)[None, None, :, None]
+                    * xheads[:, :s].to(y.dtype))
+    y = gated_rmsnorm(params["norm"], y.reshape(bs, s, cfg.d_inner), z,
+                      cfg.rms_eps)
+    out = y @ params["out_proj"].to(y.dtype)
+
+    if cache is None:
+        return out, None
+    tail = cfg.ssm_conv - 1
+    conv_tail = (x_bc_raw[:, s - tail:] if s >= tail else
+                 torch.cat([cache["conv"][:, s:].to(x_bc_raw.dtype),
+                            x_bc_raw], dim=1))
+    return out, {"conv": conv_tail.to(cache["conv"].dtype),
+                 "state": final_state}
 
 
 def mamba_decode(params, cfg: ArchConfig, x: torch.Tensor,

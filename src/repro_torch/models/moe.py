@@ -1,19 +1,33 @@
-"""MoE routing: init, top-k router and the expert sort that feeds the
-grouped GEMM. Counterpart of ``repro.models.moe`` (the routing half; the
-expert FFN itself runs on the F role in ``parallel/afd.py``).
+"""Mixture-of-Experts FFN: init, top-k router and two execution paths.
+Counterpart of ``repro.models.moe``.
+
+  * ``moe_capacity`` — GShard-style capacity-bounded one-hot dispatch as
+    dense einsums; tokens past an expert's capacity are dropped. The
+    single-program model's prefill and forward run it, as JAX's do; the
+    einsums stay ``torch.einsum`` (JAX computes them outside any kernel).
+  * ``moe_sorted`` — dropless: replicate each token top_k times, sort by
+    expert and run the routed-expert FFN (``expert_ffn``) on the grouped
+    GEMM kernel, with the dispatch gather fused into the first GEMM
+    (``row_index``) and the combine unpermute into the second
+    (``out_index``). The model's decode step runs it; the AFD runtime's F
+    role runs ``expert_ffn`` on the gating the A role sends it.
 
 Routing is softmax-then-top-k with optional renormalisation of the gate
-weights. The router weight stays float32, as in JAX.
+weights. The router weight stays float32, as in JAX. Shared experts are a
+plain gated MLP added to the routed output.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+import math
+from typing import Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
+from repro_torch.kernels import ops as kops
 from repro_torch.models.common import ArchConfig, dense_init
-from repro_torch.models.layers import init_mlp
+from repro_torch.models.layers import activation, apply_mlp, init_mlp
 
 
 def init_moe(seed: int, name: str, cfg: ArchConfig,
@@ -44,6 +58,19 @@ def route(params, cfg: ArchConfig, x_flat: torch.Tensor
     return probs, topw, topi.to(torch.int32)
 
 
+def aux_load_balance_loss(probs: torch.Tensor, topi: torch.Tensor,
+                          n_experts: int) -> torch.Tensor:
+    """Switch-style auxiliary load-balance loss: E · Σ_e f_e · P_e."""
+    onehot = F.one_hot(topi.long(), n_experts).float()         # (N, k, E)
+    f = onehot.sum(1).mean(0)                                  # per expert
+    return n_experts * (f * probs.mean(0)).sum()
+
+
+def _expert_ffn(cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
+    gate, up = h.chunk(2, dim=-1)
+    return activation(cfg, gate) * up
+
+
 def sort_by_expert(topi: torch.Tensor, n_experts: int
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Flatten (N, k) expert ids into a group-sorted order.
@@ -57,3 +84,96 @@ def sort_by_expert(topi: torch.Tensor, n_experts: int
     inv_idx = torch.argsort(sort_idx, stable=True)
     group_sizes = torch.bincount(flat, minlength=n_experts).to(torch.int32)
     return sort_idx, inv_idx, group_sizes
+
+
+# ---------------------------------------------------------------------------
+# Capacity-bounded dense dispatch
+# ---------------------------------------------------------------------------
+
+def capacity(cfg: ArchConfig, n_tokens: int,
+             factor: Optional[float] = None) -> int:
+    f = factor if factor is not None else cfg.moe_capacity_factor
+    return max(int(math.ceil(n_tokens * cfg.top_k * f / cfg.n_experts)), 4)
+
+
+def moe_capacity(params, cfg: ArchConfig, x: torch.Tensor,
+                 cap: Optional[int] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Capacity-dispatch MoE over x (..., D). Returns (out, aux_loss).
+
+    A (token, slot) pair takes the next place in its expert's queue in
+    token-major order (a cumulative sum of one-hots, as in JAX); pairs at
+    or past ``cap`` places are dropped."""
+    orig_shape = x.shape
+    x_flat = x.reshape(-1, orig_shape[-1])
+    n, dt = x_flat.shape[0], x_flat.dtype
+    e, k = cfg.n_experts, cfg.top_k
+    c = cap if cap is not None else capacity(cfg, n)
+
+    probs, topw, topi = route(params, cfg, x_flat)
+    aux = aux_load_balance_loss(probs, topi, e)
+
+    onehot = F.one_hot(topi.long(), e)                          # (N, k, E)
+    flat_oh = onehot.reshape(n * k, e)
+    pos_in_expert = torch.cumsum(flat_oh, dim=0) * flat_oh - 1  # (N·k, E)
+    pos = pos_in_expert.max(dim=-1).values.reshape(n, k)        # (N, k)
+    keep = pos < c
+
+    disp = onehot.to(dt) * keep[..., None].to(dt)
+    pos_oh = F.one_hot(torch.where(keep, pos, 0), c).to(dt)
+    dispatch = torch.einsum("nke,nkc->nkec", disp, pos_oh)      # (N,k,E,C)
+    combine = dispatch * topw[..., None, None].to(dt)
+
+    x_e = torch.einsum("nkec,nd->ecd", dispatch, x_flat)        # (E, C, D)
+    h = _expert_ffn(cfg, torch.einsum("ecd,edf->ecf", x_e,
+                                      params["wi"].to(dt)))
+    y_e = torch.einsum("ecf,efd->ecd", h, params["wo"].to(dt))
+    out = torch.einsum("nkec,ecd->nd", combine, y_e)
+    if "shared" in params:
+        out = out + apply_mlp(params["shared"], cfg, x_flat)
+    return out.reshape(orig_shape), aux
+
+
+# ---------------------------------------------------------------------------
+# Sort-based dropless dispatch on the grouped GEMM
+# ---------------------------------------------------------------------------
+
+def expert_ffn(cfg: ArchConfig, wi: torch.Tensor, wo: torch.Tensor,
+               tokens: torch.Tensor, topw: torch.Tensor, topi: torch.Tensor,
+               impl: Optional[str] = None) -> torch.Tensor:
+    """Routed-expert FFN of tokens (N, D) given their gating: the dispatch
+    gather rides into the gate|up grouped GEMM as ``row_index`` and the
+    combine unpermute out of the down GEMM as an ``out_index`` scatter.
+    ``impl`` picks the kernel or the plain version (``kernels.ops``)."""
+    n, d = tokens.shape
+    sort_idx, _, group_sizes = sort_by_expert(topi, cfg.n_experts)
+    h = kops.grouped_gemm(tokens, wi.to(tokens.dtype), group_sizes,
+                          impl=impl, row_index=sort_idx // cfg.top_k)
+    ys = kops.grouped_gemm(_expert_ffn(cfg, h), wo.to(tokens.dtype),
+                           group_sizes, impl=impl, out_index=sort_idx,
+                           out_rows=n * cfg.top_k)
+    y = ys.reshape(n, cfg.top_k, d)
+    return torch.einsum("nkd,nk->nd", y, topw.to(tokens.dtype))
+
+
+def moe_sorted(params, cfg: ArchConfig, x: torch.Tensor,
+               impl: Optional[str] = None) -> torch.Tensor:
+    """Dropless MoE via sort + grouped GEMM. x: (..., D) → (..., D)."""
+    x_flat = x.reshape(-1, x.shape[-1])
+    _, topw, topi = route(params, cfg, x_flat)
+    out = expert_ffn(cfg, params["wi"], params["wo"], x_flat, topw, topi,
+                     impl)
+    if "shared" in params:
+        out = out + apply_mlp(params["shared"], cfg, x_flat)
+    return out.reshape(x.shape)
+
+
+def moe_forward(params, cfg: ArchConfig, x: torch.Tensor,
+                mode: str = "train", impl: Optional[str] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Dispatch by phase: the capacity path for train and prefill, the
+    sorted grouped-GEMM path for decode. Returns (out, aux_loss)."""
+    if mode == "train":
+        return moe_capacity(params, cfg, x)
+    return (moe_sorted(params, cfg, x, impl),
+            torch.zeros((), dtype=torch.float32, device=x.device))

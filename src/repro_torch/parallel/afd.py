@@ -32,24 +32,12 @@ import dataclasses
 from typing import List, Optional, Sequence
 
 import torch
-import torch.nn.functional as F
 
-from repro_torch.kernels import ops as kops
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import kvcache, mamba2, moe as moe_mod
-from repro_torch.models.common import ArchConfig, LayerSpec
+from repro_torch.models.common import ArchConfig, LayerSpec, resolve_device
 from repro_torch.models.layers import (apply_lm_head, apply_mlp, apply_norm,
                                        embed_tokens)
-
-
-def resolve_device(device=None) -> torch.device:
-    """``None`` means the CUDA device; asking for CUDA without one raises
-    (the runtime never carries on on the CPU unless told to)."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device is available; pass device='cpu' "
-                           "to run the port on the CPU")
-    return dev
 
 
 def _to(tree, device: torch.device):
@@ -143,26 +131,6 @@ class AFDRuntime:
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
 
-    # ---- F-role program ----------------------------------------------------
-
-    def _ffn_impl(self, wi, wo, tokens, topw, topi):
-        """Routed-expert FFN given the gating from the A role. The dispatch
-        gather rides into the first grouped GEMM as ``row_index`` and the
-        combine unpermute out of the second as an ``out_index`` scatter."""
-        cfg = self.cfg
-        n, d = tokens.shape
-        sort_idx, _, group_sizes = moe_mod.sort_by_expert(topi, cfg.n_experts)
-        h = kops.grouped_gemm(tokens, wi.to(tokens.dtype), group_sizes,
-                              impl=self.impl,
-                              row_index=sort_idx // cfg.top_k)
-        gate, up = h.chunk(2, dim=-1)
-        h = F.silu(gate) * up
-        ys = kops.grouped_gemm(h, wo.to(tokens.dtype), group_sizes,
-                               impl=self.impl, out_index=sort_idx,
-                               out_rows=n * cfg.top_k)
-        y = ys.reshape(n, cfg.top_k, d)
-        return torch.einsum("nkd,nk->nd", y, topw.to(tokens.dtype))
-
     # ---- per-layer A-role pieces -------------------------------------------
 
     def _mixer(self, lp, spec: LayerSpec, x, cache, pos):
@@ -216,8 +184,10 @@ class AFDRuntime:
                           tokens.element_size(),
                           topi.numel() * 4 + topw.numel() * 4)
 
-        routed_f = self._ffn_impl(f_entry["wi"], f_entry["wo"], tok_f,
-                                  topw_f, topi_f)
+        # F role: the grouped GEMM kernel, dispatch gather and combine
+        # unpermute fused into it
+        routed_f = moe_mod.expert_ffn(cfg, f_entry["wi"], f_entry["wo"],
+                                      tok_f, topw_f, topi_f, self.impl)
         routed = routed_f.to(self.a_device)         # combine: F → A
 
         out = x + routed.reshape(x.shape)

@@ -46,8 +46,9 @@ def calibrate(arch: str = "granite-moe-1b-a400m",
     weights from seed 0) and derive the analytic derate. ``device=None``
     means the CUDA device, as the port's other entry points."""
     from repro_torch import configs
+    from repro_torch.models.common import resolve_device
     from repro_torch.models.params import init_params
-    from repro_torch.parallel.afd import AFDRuntime, resolve_device
+    from repro_torch.parallel.afd import AFDRuntime
 
     cfg = configs.get_smoke_config(arch)
     device = resolve_device(device)

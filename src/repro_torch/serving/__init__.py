@@ -1,2 +1,2 @@
-"""Serving: the two-role engine, its scheduler policy and the traffic
-model."""
+"""Serving: the single-program ``DecodeEngine``, the two-role AFD engine,
+their scheduler policy and the traffic model."""

@@ -289,7 +289,13 @@ def test_port_imports_no_jax_and_no_repro():
         f"repro_torch.fleet.{m}" for m in (
             "events", "router", "rescaler", "controller")} | {
         "repro_torch.models.mamba2", "repro_torch.provision.calibrate",
-        "repro_torch.configs.jamba_v0_1_52b"} <= imported
+        "repro_torch.configs.jamba_v0_1_52b"} | {
+        f"repro_torch.models.{m}" for m in ("transformer", "model")} | {
+        "repro_torch.serving.engine", "repro_torch.launch.serve",
+        "repro_torch.launch.presets"} | {
+        f"repro_torch.configs.{m}" for m in (
+            "qwen1_5_0_5b", "qwen3_8b", "granite_8b", "h2o_danube_1_8b",
+            "internvl2_2b", "whisper_small", "mamba2_2_7b")} <= imported
 
 
 def test_runtime_defaults_to_cuda():

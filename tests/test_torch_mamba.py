@@ -366,3 +366,84 @@ def test_cuda_jamba_runtime_matches_plain_path(cuda):
     assert counts["grouped_gemm"] == 2 * moe * 4
     np.testing.assert_allclose(outs[0].cpu().numpy(), outs[1].cpu().numpy(),
                                atol=1e-4)
+
+
+def test_mamba2_bf16_chunked_vs_stepped_drift_matches_jax():
+    """mamba2 smoke (all-SSM): the last logits of ``Model.prefill`` over 32
+    tokens (chunked SSD, 4 chunks) against 32 ``decode_step`` calls. In
+    float32 the two agree to 1e-4 in both packages; in bf16 they drift
+    apart by rounding, in JAX as in the port. The port's drift stays
+    within twice JAX's own, and JAX's within 1e-1."""
+    from repro_torch.models.model import make_model as tmake_model
+    toks = np.random.default_rng(2).integers(1, 256, (2, 32)).astype(
+        np.int32)
+    drift = {}
+    for dtype in ("float32", "bfloat16"):
+        jcfg = dataclasses.replace(jconfigs.get_smoke_config("mamba2-2.7b"),
+                                   dtype=dtype, param_dtype=dtype)
+        tcfg = dataclasses.replace(tconfigs.get_smoke_config("mamba2-2.7b"),
+                                   dtype=dtype, param_dtype=dtype)
+        jm, tm = make_model(jcfg), tmake_model(tcfg, device="cpu")
+        jp = jm.init(jax.random.PRNGKey(0))
+        tp = params_from_jax(tcfg, _numpy_tree(jp), "cpu")
+        jl, _ = jm.prefill(jp, {"tokens": jnp.asarray(toks)}, 32)
+        tl, _ = tm.prefill(tp, {"tokens": torch.from_numpy(toks)}, 32)
+        jc, tc = jm.init_cache(2, 32), tm.init_cache(2, 32)
+        for j in range(32):
+            jd, jc = jm.decode_step(jp, jc, jnp.asarray(toks[:, j]))
+            td, tc = tm.decode_step(tp, tc, torch.from_numpy(toks[:, j]))
+
+        def rel(a, b):
+            return float(np.linalg.norm(_np(a) - _np(b))
+                         / np.linalg.norm(_np(b)))
+        drift[dtype] = (rel(jl, jd), rel(tl, td))
+    assert max(drift["float32"]) <= 1e-4
+    jax_drift, port_drift = drift["bfloat16"]
+    assert 0 < jax_drift <= 1e-1
+    assert port_drift <= 2 * jax_drift
+
+
+# chip_smoke.py phase 11 gates mamba2-2.7b's bf16 chunked prefill against
+# its stepped decode on the card at this depth and prompt length, at full
+# width, at this bound
+MAMBA_BF16_LAYERS, MAMBA_BF16_TOKENS, MAMBA_BF16_TOL = 4, 32, 5e-2
+
+
+def test_mamba2_bf16_drift_at_full_width_matches_jax():
+    """mamba2-2.7b at full width (d_model 2560, 80 SSD heads, state 128,
+    vocab 50,280) cut to its first 4 layers, bf16: the last logits of
+    ``Model.prefill`` over 32 tokens against 32 ``decode_step`` calls, in
+    JAX and in the port on JAX's weights. JAX's own gap stays within half
+    of ``MAMBA_BF16_TOL``, the bound ``chip_smoke.py`` holds the port to on
+    the card at this depth, and the port's within twice JAX's. The gaps
+    are printed (``pytest -s``)."""
+    from repro_torch.models.model import make_model as tmake_model
+    jcfg = dataclasses.replace(jconfigs.get_config("mamba2-2.7b"),
+                               n_layers=MAMBA_BF16_LAYERS)
+    tcfg = dataclasses.replace(tconfigs.get_config("mamba2-2.7b"),
+                               n_layers=MAMBA_BF16_LAYERS)
+    toks = np.random.default_rng(2).integers(
+        1, jcfg.vocab_size, (1, MAMBA_BF16_TOKENS)).astype(np.int32)
+    jm, tm = make_model(jcfg), tmake_model(tcfg, device="cpu")
+    jp = jm.init(jax.random.PRNGKey(0))
+    tp = params_from_jax(tcfg, _numpy_tree(jp), "cpu")
+    jl, _ = jax.jit(jm.prefill, static_argnums=2)(
+        jp, {"tokens": jnp.asarray(toks)}, MAMBA_BF16_TOKENS)
+    tl, _ = tm.prefill(tp, {"tokens": torch.from_numpy(toks)},
+                       MAMBA_BF16_TOKENS)
+    jstep = jax.jit(jm.decode_step)
+    jc = jm.init_cache(1, MAMBA_BF16_TOKENS)
+    tc = tm.init_cache(1, MAMBA_BF16_TOKENS)
+    for j in range(MAMBA_BF16_TOKENS):
+        jd, jc = jstep(jp, jc, jnp.asarray(toks[:, j]))
+        td, tc = tm.decode_step(tp, tc, torch.from_numpy(toks[:, j]))
+
+    def rel(a, b):
+        return float(np.linalg.norm(_np(a) - _np(b)) / np.linalg.norm(_np(b)))
+    jax_gap, port_gap = rel(jl, jd), rel(tl, td)
+    print(f"mamba2-2.7b, {MAMBA_BF16_LAYERS} layers, {MAMBA_BF16_TOKENS} "
+          f"tokens, bf16 prefill vs steps: JAX {jax_gap:.3e}, port "
+          f"{port_gap:.3e}; port vs JAX: prefill {rel(tl, jl):.3e}, steps "
+          f"{rel(td, jd):.3e}")
+    assert 0 < jax_gap <= MAMBA_BF16_TOL / 2
+    assert port_gap <= 2 * jax_gap
