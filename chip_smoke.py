@@ -102,7 +102,28 @@ Phases, each of which fails the run by raising:
    (256 patch embeddings prefixed) pass the path check. Each run's
    launches are one split-KV per attention layer and decode step.
 
-With ``--profile`` a last phase (12) times 12 steady engine ticks (16
+12. Training and MTP at full width (no kernel is on this path: in both
+   packages the train-mode forward is dense attention and the capacity
+   MoE's einsums, so every launch count must stay 0): a. ``python -m
+   repro_torch train`` (``launch.train``) on granite-moe-1b-a400m at full
+   width and depth, bf16, 8 x 128 tokens: 12 steps with a checkpoint
+   every 6, then the same command to 18 steps, which must print
+   ``resumed from step 12`` and ``done: 6 steps``, every loss and
+   gradient norm finite (step wall, tokens/s, peak memory, parameter and
+   AdamW-state bytes logged; the loss is not gated: 18 steps cannot
+   learn the stream's 49,155-token bigram table); b. 20 AdamW steps (lr
+   1e-3) on one fixed batch must lower the loss by 1 nat; c. the model cut
+   to 2 layers in float32, TF32 off: card gradients within 1e-4 per leaf
+   of the CPU's; d. with deterministic algorithms, a restart from an
+   ``AsyncCheckpointer`` save at step 3 repeats three steps bit for bit
+   (params and AdamW state); e. ``remat=True`` gives bit-identical
+   gradients (both peaks logged); f. the MTP harness on qwen1.5-0.5b at
+   full width in float32: a self-draft (k 4, a 32-token prompt, 16
+   tokens) may reject only at a near-tie of the target's logits (top-2
+   gap ≤ 1e-3 of the row's largest |logit|), and a noisy draft's
+   ``MTPStats`` are logged beside it.
+
+With ``--profile`` a last phase (13) times 12 steady engine ticks (16
 sequences, prefill chunks interleaved with decode), traces the same ticks
 with ``torch.profiler`` and prints the device's busy share of the wall
 clock and its time by kernel; it fails unless split-KV ran one device
@@ -124,6 +145,7 @@ import json
 import math
 import os
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -221,9 +243,32 @@ MAMBA_BF16_LAYERS = 4
 MAMBA_BF16_TOKENS = 32
 MAMBA_BF16_TOL = 5e-2
 
+# Phase 12: the JAX package's training driver (launch/train.py) at full
+# width and depth, its other flags at their defaults (lr 3e-3, seed 0)
+TRAIN_ARGV = ["--arch", "granite-moe-1b-a400m", "--preset", "full",
+              "--batch", "8", "--seq", "128", "--ckpt-every", "6",
+              "--log-every", "6", "--device", "cuda"]
+# AdamW at lr 1e-3 on one fixed 8 x 128 batch: the loss must fall by at
+# least LEARN_DROP nats in LEARN_STEPS steps
+LEARN_STEPS, LEARN_LR, LEARN_DROP = 20, 1e-3, 1.0
+# card against CPU gradients, float32 with TF32 off, per leaf:
+# ||g_card - g_cpu|| / ||g_cpu|| (the CPU tests hold the port to JAX at 1e-4)
+TRAIN_GRAD_RTOL = 1e-4
+# a self-draft rejection must sit at a near-tie: the target's top-2 logit
+# gap at most this fraction of the row's largest |logit|
+MTP_GAP_TOL = 1e-3
+
 
 def log(*args) -> None:
     print(*args, flush=True)
+
+
+def _free(torch) -> None:
+    """Free earlier phases' models (cycles included) and restart the
+    peak-memory count."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
 
 
 def card_line() -> str:
@@ -1354,12 +1399,13 @@ def fleet_path_check(torch, cfg, params, rt) -> None:
     (step, layer) between the runs with the plain run's router margin on
     each, the error before the first disagreement, and a plain run that
     replays the kernel run's expert choices."""
+    from repro_torch.models.common import tree_map
     from repro_torch.parallel.afd import AFDRuntime
     gen = seeded(torch, 9)
     toks = torch.randint(1, cfg.vocab_size, (2, 32), generator=gen,
                          device="cuda", dtype=torch.int32)
     cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
-    params32 = _tree_map(lambda t: t.float(), params)
+    params32 = tree_map(lambda t: t.float(), params)
     runs = {"kernels": rt, "plain": AFDRuntime(cfg, params, impl="plain"),
             "plain_f32": AFDRuntime(cfg32, params32, impl="plain"),
             "replay": AFDRuntime(cfg, params, impl="plain")}
@@ -1569,6 +1615,7 @@ def jamba_serve(torch, card) -> None:
     wall clock) on an 8-request seeded trace; then its kernel path against
     the plain path on the same parameters."""
     from repro_torch.kernels import ops
+    from repro_torch.models.common import tree_bytes, tree_count
     from repro_torch.models.params import init_params
     from repro_torch.parallel.afd import AFDRuntime, AFDStats
     from repro_torch.serving.afd_engine import AFDServeEngine
@@ -1576,16 +1623,13 @@ def jamba_serve(torch, card) -> None:
                                               TrafficProfile, generate_trace)
     cfg = jamba_cfg()
     specs = cfg.layer_plan().flat()
-    gc.collect()                # earlier phases' models, cycles included
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
+    _free(torch)
     log(f"  allocated before the model: "
         f"{torch.cuda.memory_allocated() / 1e9:.3f} GB")
     t0 = time.perf_counter()
     params = init_params(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in _tensors(params))
-    n_bytes = sum(t.numel() * t.element_size() for t in _tensors(params))
+    n_params, n_bytes = tree_count(params), tree_bytes(params)
     log(f"  {cfg.n_layers} layers ({sum(sp.kind == 'attn' for sp in specs)} "
         f"attention, {sum(sp.kind == 'mamba' for sp in specs)} Mamba; "
         f"{sum(sp.moe for sp in specs)} MoE), {n_params / 1e9:.3f} B "
@@ -1824,9 +1868,7 @@ def _fresh(torch, cfg):
     model; logs the tree's size and ``param_count``'s."""
     from repro_torch.models.common import tree_bytes, tree_count
     from repro_torch.models.model import make_model
-    gc.collect()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
+    _free(torch)
     t0 = time.perf_counter()
     params = make_model(cfg).init(0)
     torch.cuda.synchronize()
@@ -2029,6 +2071,353 @@ def families(torch, card) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: training and MTP
+# ---------------------------------------------------------------------------
+
+def _check_finite(name, values) -> None:
+    bad = [v for v in values if not math.isfinite(v)]
+    if bad or not values:
+        raise AssertionError(f"{name}: not finite: {bad or 'no values'}")
+
+
+def train_driver(torch, card) -> dict:
+    """12a: ``launch.train`` (``python -m repro_torch train``) at full
+    width, 12 steps with a checkpoint every 6 into a temporary directory,
+    then the same command to 18 steps, which must resume at 12."""
+    import io
+    import tempfile
+    from repro_torch.launch import train
+    from repro_torch.models.common import tree_bytes, tree_count
+    from repro_torch.training.checkpoint import list_steps
+    runs = []
+    with tempfile.TemporaryDirectory() as d:
+        for steps in (12, 18):
+            _free(torch)
+            buf = io.StringIO()
+            try:
+                with contextlib.redirect_stdout(buf):
+                    r = train.run(TRAIN_ARGV + ["--steps", str(steps),
+                                                "--ckpt-dir", d])
+            finally:
+                for line in buf.getvalue().splitlines():
+                    log(f"    | {line}")
+            r.update(stdout=buf.getvalue(),
+                     peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                     n_params=tree_count(r["params"]),
+                     param_gb=tree_bytes(r["params"]) / 1e9,
+                     opt_gb=tree_bytes(r["opt_state"]) / 1e9)
+            del r["params"], r["opt_state"]
+            runs.append(r)
+        kept = list_steps(d)
+        ckpt_gb = sum(os.path.getsize(os.path.join(d, f"step_{kept[-1]:09d}",
+                                                    f))
+                      for f in os.listdir(os.path.join(
+                          d, f"step_{kept[-1]:09d}"))) / 1e9
+    first, second = runs
+    for r in runs:
+        _check_finite("driver losses", r["losses"])
+        _check_finite("driver grad norms", r["grad_norms"])
+    if ("done: 12 steps" not in first["stdout"] or "resumed" in
+            first["stdout"] or "resumed from step 12" not in second["stdout"]
+            or "done: 6 steps" not in second["stdout"] or kept != [6, 12, 18]):
+        raise AssertionError(f"driver: resume failed (checkpoints {kept})")
+    tokens = 8 * 128
+    wall = statistics.median(first["step_walls"][3:])
+    out = {"step_wall_s": wall, "tokens_per_s": tokens / wall,
+           "rerun_step_wall_s": statistics.median(second["step_walls"][3:]),
+           "first_step_s": first["step_walls"][0],
+           "run_walls_s": [first["wall_s"], second["wall_s"]],
+           "peak_gb": [first["peak_gb"], second["peak_gb"]],
+           "n_params": first["n_params"], "param_gb": first["param_gb"],
+           "opt_state_gb": first["opt_gb"], "checkpoint_gb": ckpt_gb,
+           "losses": first["losses"] + second["losses"],
+           "grad_norms": first["grad_norms"] + second["grad_norms"]}
+    log(f"  {card}: {out['n_params'] / 1e9:.3f} B parameters "
+        f"({out['param_gb']:.2f} GB), AdamW state {out['opt_state_gb']:.2f} "
+        f"GB, a checkpoint {ckpt_gb:.2f} GB on disk; step wall (median of "
+        f"steps 4-12) {wall * 1e3:.1f} ms = {out['tokens_per_s']:.0f} "
+        f"tokens/s, steps 16-18 after the resume "
+        f"{out['rerun_step_wall_s'] * 1e3:.1f} ms, first step "
+        f"{out['first_step_s']:.2f} s; runs {first['wall_s']:.1f} / "
+        f"{second['wall_s']:.1f} s with checkpoints; peak allocated "
+        f"{first['peak_gb']:.2f} / {second['peak_gb']:.2f} GB")
+    return out
+
+
+def train_learns(torch, card, cfg) -> dict:
+    """12b: LEARN_STEPS AdamW steps (lr LEARN_LR) on one fixed 8 x 128
+    batch of the markov stream; the loss must fall by LEARN_DROP nats."""
+    from repro_torch.models.model import make_model
+    from repro_torch.training import data, optimizer
+    from repro_torch.training.train import make_train_step
+    _free(torch)
+    model = make_model(cfg)
+    params = model.init(0)
+    opt = optimizer.adamw(lr=LEARN_LR)
+    state = opt.init(params)
+    batch = data.make_batch(data.DataConfig(8, 128, cfg.vocab_size), 0, cfg,
+                            "cuda")
+    step = make_train_step(model, opt)
+    losses = []
+    for _ in range(LEARN_STEPS):
+        params, state, m = step(params, state, batch)
+        losses.append(float(m["loss"]))
+    _check_finite("fixed-batch losses", losses)
+    drop = losses[0] - losses[-1]
+    log(f"  {card}: fixed-batch loss {losses[0]:.4f} -> {losses[-1]:.4f} "
+        f"(drop {drop:.4f} nats ≥ {LEARN_DROP}); every step: "
+        + " ".join(f"{x:.3f}" for x in losses))
+    if drop < LEARN_DROP:
+        raise AssertionError(f"the loss fell {drop:.4f} nats in "
+                             f"{LEARN_STEPS} steps on one batch")
+    return {"loss_first": losses[0], "loss_last": losses[-1], "drop": drop}
+
+
+def train_grads_vs_cpu(torch, card, cfg) -> dict:
+    """12c: the full-width model cut to 2 layers, float32, TF32 off: one
+    backward on 2 x 64 tokens on the card and on the CPU from the same
+    weights; every leaf within TRAIN_GRAD_RTOL."""
+    from repro_torch.models.common import tree_map
+    from repro_torch.models.model import make_model
+    from repro_torch.training import data
+    from repro_torch.training.checkpoint import _named
+    from repro_torch.training.train import loss_and_grads
+    _free(torch)
+    cfg2 = dataclasses.replace(cfg, n_layers=2, dtype="float32",
+                               param_dtype="float32")
+    cpu = make_model(cfg2, device="cpu")
+    params = cpu.init(0)
+    batch = data.make_batch(data.DataConfig(2, 64, cfg.vocab_size), 0, cfg2,
+                            "cpu")
+    t0 = time.perf_counter()
+    loss_cpu, _, g_cpu = loss_and_grads(cpu, params, batch)
+    t_cpu = time.perf_counter() - t0
+    loss_gpu, _, g_gpu = loss_and_grads(
+        make_model(cfg2), tree_map(lambda t: t.cuda(), params),
+        {k: v.cuda() for k, v in batch.items()})
+    want = dict(_named(g_cpu))
+    errs = {}
+    for name, g in _named(g_gpu):
+        g = g.cpu().double()
+        if not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"card gradient {name} is not finite")
+        w = want[name].double()
+        errs[name] = float((g - w).norm() / w.norm().clamp(min=1e-12))
+    worst = sorted(errs, key=errs.get, reverse=True)[:3]
+    log(f"  {card}: loss card {float(loss_gpu):.6f} / CPU "
+        f"{float(loss_cpu):.6f} ({t_cpu:.1f} s on the CPU); {len(errs)} "
+        "leaves, worst relative error " + ", ".join(
+            f"{n} {errs[n]:.3e}" for n in worst)
+        + f" ≤ {TRAIN_GRAD_RTOL}")
+    if len(errs) != len(want) or errs[worst[0]] > TRAIN_GRAD_RTOL:
+        raise AssertionError("card gradients disagree with the CPU's")
+    return {"worst_leaf": worst[0], "worst_rel_err": errs[worst[0]]}
+
+
+def _bits(torch, t):
+    """A tensor's bits as integers: bitwise equality, NaN payloads too."""
+    if not t.is_floating_point():
+        return t
+    return t.view({2: torch.int16, 4: torch.int32}[t.element_size()])
+
+
+def _bit_differences(torch, a, b) -> list:
+    """Per leaf whose bits differ: (path, differing elements, max |a - b|
+    over finite pairs, non-finite elements in a, in b)."""
+    from repro_torch.training.checkpoint import _named
+    out = []
+    for (name, x), (_, y) in zip(_named(a), _named(b)):
+        bx, by = _bits(torch, x), _bits(torch, y)
+        if x.dtype == y.dtype and torch.equal(bx, by):
+            continue
+        d = (x.float() - y.float()).abs()
+        d = d[d.isfinite()]
+        out.append((name, int((bx != by).sum()),
+                    float(d.max()) if d.numel() else float("nan"),
+                    int((~x.isfinite()).sum()), int((~y.isfinite()).sum())))
+    return out
+
+
+def train_restart_and_remat(torch, card, cfg) -> dict:
+    """12d and 12e, with deterministic algorithms on (bitwise checks):
+    three steps, an ``AsyncCheckpointer`` save at step 3 (bf16 leaves),
+    three more; restore and repeat them: params and AdamW state bit for
+    bit. Then one backward with ``remat=True`` against one without on the
+    same weights and batch: loss and gradients bit for bit, with both
+    peaks logged; and the backward without remat once more, against
+    itself. Every step's loss and each differing leaf are logged."""
+    import tempfile
+    from repro_torch.models.model import make_model
+    from repro_torch.training import checkpoint, data, optimizer
+    from repro_torch.training.train import loss_and_grads, make_train_step
+    _free(torch)
+    model = make_model(cfg)
+    opt = optimizer.adamw(lr=LEARN_LR)
+    dc = data.DataConfig(8, 128, cfg.vocab_size)
+    batches = [data.make_batch(dc, i, cfg, "cuda") for i in range(6)]
+    step = make_train_step(model, opt)
+    losses = {"first": [], "A": [], "B": []}
+
+    def run(p, s, bs, key):
+        for b in bs:
+            p, s, m = step(p, s, b)
+            losses[key].append(float(m["loss"]))
+        return p, s
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        p = model.init(0)
+        p, s = run(p, opt.init(p), batches[:3], "first")
+        with tempfile.TemporaryDirectory() as d:
+            t0 = time.perf_counter()
+            ck = checkpoint.AsyncCheckpointer(d)
+            ck.save(3, p, s)
+            t_copy = time.perf_counter() - t0
+            ck.wait()
+            t_save = time.perf_counter() - t0
+            pa, sa = run(p, s, batches[3:], "A")
+            del p, s
+            t0 = time.perf_counter()
+            _, pb, sb, _ = checkpoint.restore_latest(d, pa, sa)
+            t_restore = time.perf_counter() - t0
+        pb, sb = run(pb, sb, batches[3:], "B")
+        restart_diff = _bit_differences(torch, (pa, sa), (pb, sb))
+        del pb, sb, sa
+        remat = make_model(dataclasses.replace(cfg, remat=True))
+        runs = []
+        for m in (model, remat, model):
+            _free(torch)
+            base = torch.cuda.memory_allocated()
+            loss, _, grads = loss_and_grads(m, pa, batches[0])
+            runs.append((loss, grads,
+                         torch.cuda.max_memory_allocated() - base))
+        (l0, g0, peak0), (l1, g1, peak1), (l2, g2, _) = runs
+        remat_diff = _bit_differences(torch, (l0, g0), (l1, g1))
+        repeat_diff = _bit_differences(torch, (l0, g0), (l2, g2))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    log(f"  {card}: step losses {json.dumps(losses)}")
+    log(f"  restart from an async checkpoint (host copy {t_copy:.1f} s, "
+        f"written in {t_save:.1f} s, restored in {t_restore:.1f} s): params "
+        f"and state bit-identical {not restart_diff}"
+        + (f"; differing leaves {restart_diff[:8]}" if restart_diff else ""))
+    log(f"  remat: loss and gradients bit-identical {not remat_diff}"
+        + (f"; differing {remat_diff[:8]}" if remat_diff else "")
+        + f"; the same backward twice: bit-identical {not repeat_diff}"
+        + (f"; differing {repeat_diff[:8]}" if repeat_diff else "")
+        + f"; one backward's peak above what was allocated before it: "
+        f"{peak0 / 1e9:.2f} GB without, {peak1 / 1e9:.2f} GB with remat")
+    if restart_diff or remat_diff:
+        raise AssertionError(f"bitwise checks: restart {not restart_diff}, "
+                             f"remat {not remat_diff}")
+    return {"restart_bitwise": True, "remat_bitwise": True,
+            "peak_gb_no_remat": peak0 / 1e9, "peak_gb_remat": peak1 / 1e9,
+            "save_s": t_save, "restore_s": t_restore}
+
+
+class _RecordingModel:
+    """A ``Model`` whose ``forward`` keeps each call's tokens and logits:
+    the MTP harness's target, so the script can find each rejection."""
+
+    def __init__(self, model):
+        self.model, self.device, self.calls = model, model.device, []
+
+    def forward(self, params, batch, mode="train"):
+        out = self.model.forward(params, batch, mode)
+        self.calls.append((batch["tokens"][0].tolist(), out[0][0]))
+        return out
+
+
+def mtp_full_width(torch, card) -> dict:
+    """12f: ``serving.mtp.speculative_generate`` on qwen1.5-0.5b at full
+    width, float32 (TF32 off): the self-draft with k = 4 on a 32-token
+    prompt for 16 tokens, where every rejection must sit at a near-tie of
+    the target's logits; then a draft with 10% noise logged beside it."""
+    from repro_torch import configs
+    from repro_torch.models.common import tree_map
+    from repro_torch.models.model import make_model
+    from repro_torch.serving import mtp
+    _free(torch)
+    cfg = dataclasses.replace(configs.get_config("qwen1.5-0.5b"),
+                              dtype="float32", param_dtype="float32")
+    model = make_model(cfg)
+    params = model.init(0)
+    gen = seeded(torch, 15)
+    prompt = torch.randint(1, cfg.vocab_size, (32,), generator=gen,
+                           device="cuda").tolist()
+    k = 4
+    target = _RecordingModel(model)
+    t0 = time.perf_counter()
+    toks, stats = mtp.speculative_generate(target, params, model, params,
+                                           prompt, n_tokens=16, k_draft=k)
+    wall = time.perf_counter() - t0
+    rejections = []
+    for tokens, logits in target.calls:
+        base = len(tokens) - k
+        for i, proposed in enumerate(tokens[base:]):
+            row = logits[base - 1 + i]
+            if int(torch.argmax(row)) != proposed:
+                top2 = torch.topk(row, 2).values
+                rejections.append({
+                    "pos": base + i, "gap": float(top2[0] - top2[1]),
+                    "scale": float(row.abs().max()),
+                    "proposed_gap": float(row.max() - row[proposed])})
+                break
+    log(f"  {card}: self-draft {len(toks)} tokens in {stats.rounds} rounds "
+        f"({wall:.2f} s): {dataclasses.asdict(stats)}, acceptance "
+        f"{stats.acceptance_rate:.4f}, L_accept {stats.l_accept:.3f}; "
+        f"rejections {rejections}")
+    for r in rejections:
+        if r["gap"] > MTP_GAP_TOL * r["scale"]:
+            raise AssertionError(f"self-draft rejection off a near-tie: {r}")
+    gen = seeded(torch, 16)
+    noisy = tree_map(lambda t: t + 0.1 * t.square().mean().sqrt() * torch.randn(
+        t.shape, generator=gen, device="cuda", dtype=t.dtype), params)
+    _, nstats = mtp.speculative_generate(model, params, model, noisy, prompt,
+                                         n_tokens=16, k_draft=k)
+    log(f"  noisy draft (10% of each leaf's RMS): "
+        f"{dataclasses.asdict(nstats)}, acceptance "
+        f"{nstats.acceptance_rate:.4f}, L_accept {nstats.l_accept:.3f}, "
+        "T = SLO x L_accept at a 50 ms SLO: "
+        f"{mtp.effective_budget_relaxation(nstats, 0.05) * 1e3:.1f} ms")
+    return {"self": dataclasses.asdict(stats), "rejections": rejections,
+            "noisy": dataclasses.asdict(nstats)}
+
+
+def training(torch, card) -> dict:
+    """Phase 12: training and MTP at full width; the path runs no kernel
+    (in both packages the train-mode forward is dense attention and the
+    capacity MoE's einsums), so every launch count stays 0."""
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    cfg = configs.get_config("granite-moe-1b-a400m")
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    log("  12a: the training driver with a checkpoint resume")
+    out = {"driver": train_driver(torch, card)}
+    log(f"  12b: {LEARN_STEPS} steps on one fixed batch")
+    out["learn"] = train_learns(torch, card, cfg)
+    log("  12c: gradients on the card against the CPU (2 layers, float32)")
+    out["grads_vs_cpu"] = train_grads_vs_cpu(torch, card, cfg)
+    log("  12d-e: bitwise restart and remat (deterministic algorithms)")
+    out["bitwise"] = train_restart_and_remat(torch, card, cfg)
+    log("  12f: MTP on qwen1.5-0.5b at full width, float32")
+    out["mtp"] = mtp_full_width(torch, card)
+    launches = ops.launch_counts()
+    out["launches"] = launches
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"  launches over phase 12: {launches}; phase {out['phase_s']:.1f} s")
+    log("  training_summary " + json.dumps(
+        {k: v for k, v in out.items() if k != "driver"}
+        | {"driver": {k: v for k, v in out["driver"].items()
+                      if k not in ("losses", "grad_norms")}}))
+    if any(launches.values()):
+        raise AssertionError(f"phase 12 launched kernels: {launches}")
+    _free(torch)
+    return out
+
+
 def _steady_engine(cfg, params, warm_ticks: int):
     """16 requests of 256 prompt tokens arrive at once; after
     ``warm_ticks`` ticks the engine interleaves one 64-token prefill chunk
@@ -2096,23 +2485,33 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
                     help="trace a window of granite's engine ticks after "
-                         "phase 11")
+                         "phase 12")
     args = ap.parse_args()
 
+    # phase 12's bitwise checks run cuBLAS under deterministic algorithms,
+    # which needs a fixed workspace set before CUDA starts
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build
+    from repro_torch.models.common import tree_count
     from repro_torch.models.params import init_params
 
     t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
+    driver = subprocess.run(
+        ["nvidia-smi", "--query-gpu=driver_version,clocks.max.sm",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
     log(f"[1] card: {card}; torch {torch.__version__}, CUDA "
-        f"{torch.version.cuda}, {torch.cuda.device_count()} device(s)")
+        f"{torch.version.cuda}, {torch.cuda.device_count()} device(s); "
+        f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs, "
+        f"driver and max SM clock {driver}")
 
     secs, build_logs = _build.build_all()
     log(f"[2] kernels built in {secs:.1f} s")
@@ -2150,8 +2549,7 @@ def main() -> int:
 
     log("[4] full-width serve: granite-moe-1b-a400m, 24 layers, bf16")
     params = init_params(cfg, seed=0, device="cuda")
-    n_params = sum(t.numel() for t in _tensors(params))
-    log(f"  {n_params / 1e9:.3f} B parameters")
+    log(f"  {tree_count(params) / 1e9:.3f} B parameters")
     launches = serve(torch, cfg, params, card)
 
     log("[5] path check: kernels vs plain versions, full width bf16")
@@ -2170,9 +2568,7 @@ def main() -> int:
     log(f"[9] Jamba at full width: jamba-v0.1-52b, {JAMBA_LAYERS} of 32 "
         "layers, bf16")
     jamba_serve(torch, card)
-    gc.collect()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
+    _free(torch)
     log("[10] single-program EP serve: granite-moe-1b-a400m, 24 layers, "
         "bf16, python -m repro_torch serve " + " ".join(EP_ARGV))
     ep_launches = ep_serve(torch, card)
@@ -2181,8 +2577,11 @@ def main() -> int:
     log("  launches over phases 10-11: " + json.dumps(
         {"ep_serve": ep_launches, **{k: v["launches"]
                                      for k, v in fam.items()}}))
+    log("[12] training and MTP at full width: granite-moe-1b-a400m, 24 "
+        "layers, bf16; qwen1.5-0.5b float32")
+    training(torch, card)
     if args.profile:
-        log("[12] profiled window of engine ticks")
+        log("[13] profiled window of engine ticks")
         torch.cuda.empty_cache()
         profile_ticks(torch, cfg, init_params(cfg, seed=0, device="cuda"))
     log(f"done in {time.perf_counter() - t_start:.1f} s")
@@ -2202,25 +2601,6 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
-
-
-def _tree_map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [_tree_map(fn, v) for v in tree]
-    return fn(tree)
-
-
-def _tensors(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _tensors(v)
-    elif isinstance(tree, (list, tuple)):
-        for v in tree:
-            yield from _tensors(v)
-    else:
-        yield tree
 
 
 if __name__ == "__main__":

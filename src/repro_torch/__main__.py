@@ -10,6 +10,9 @@
     python -m repro_torch serve --arch qwen3-8b [--preset smoke|100m|full] \
         [--mode ep|afd] [--slots 4] [--requests 16] [--fail-at T] \
         [--device cuda|cpu] ...
+    python -m repro_torch train --arch granite-moe-1b-a400m \
+        [--preset smoke|100m|full] [--steps 300] [--ckpt-dir D] \
+        [--device cuda|cpu] ...
 
 ``serve-traffic`` runs the two-role AFD serving engine (``AFDRuntime`` +
 ``AFDServeEngine``) on the smoke config of ``--arch`` with random weights
@@ -32,6 +35,11 @@ package's defaults (the counterpart of ``python -m repro provision
 repro.launch.serve`` with its flags: the single-program model behind the
 continuous-batching ``DecodeEngine`` (``--mode ep``), or AFD decode steps
 (``--mode afd``).
+
+``train`` is ``repro_torch.launch.train``, the counterpart of ``python -m
+repro.launch.train`` with its flags: AdamW steps of the model on the
+synthetic token stream, resuming from the newest committed checkpoint in
+``--ckpt-dir``.
 
 ``serve-traffic`` and ``serve-fleet`` exit 1 if measured M2N bytes
 diverge from the Eq. 9/17 prediction (``serve-fleet`` also if a request
@@ -401,10 +409,13 @@ def build_parser() -> argparse.ArgumentParser:
                          "PyTorch path)")
     ca.set_defaults(fn=cmd_calibrate)
 
-    # parsed by repro_torch.launch.serve itself (see main)
+    # parsed by repro_torch.launch.serve / .train themselves (see main)
     sub.add_parser("serve", add_help=False,
                    help="single-program model behind the continuous-"
                         "batching DecodeEngine (python -m repro_torch serve "
+                        "--help for its flags)")
+    sub.add_parser("train", add_help=False,
+                   help="the training driver (python -m repro_torch train "
                         "--help for its flags)")
     return p
 
@@ -415,6 +426,9 @@ def main(argv: Optional[List[str]] = None) -> int:
         if argv[:1] == ["serve"]:
             from repro_torch.launch import serve
             return serve.main(argv[1:])
+        if argv[:1] == ["train"]:
+            from repro_torch.launch import train
+            return train.main(argv[1:])
         args = build_parser().parse_args(argv)
         return args.fn(args)
     except (KeyError, ValueError) as e:

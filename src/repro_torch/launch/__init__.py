@@ -1,2 +1,2 @@
-"""Launch scripts: ``serve`` (``python -m repro_torch serve``) and the
-config presets."""
+"""Launch scripts: ``serve`` (``python -m repro_torch serve``), ``train``
+(``python -m repro_torch train``) and the config presets."""

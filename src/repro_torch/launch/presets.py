@@ -1,6 +1,5 @@
-"""Config presets of the launch scripts: a copy of
-``repro.launch.train.preset_config`` (the preset function only; the port
-has no training loop yet).
+"""Config presets of the launch scripts (``train`` and ``serve``): a copy
+of ``repro.launch.train.preset_config``.
 
   smoke — the arch's reduced smoke config (seconds on a CPU)
   100m  — a ~100M-parameter member of the same family

@@ -288,6 +288,24 @@ def _leaves(tree):
         yield tree
 
 
+def tree_leaves(tree) -> list:
+    """The tensors of a nested dict/list tree, in ``tree_map``'s order."""
+    return list(_leaves(tree))
+
+
+def tree_map(fn, tree, *rest):
+    """``fn(leaf, *leaves_of_rest)`` over every tensor of a nested dict/list
+    tree, keeping its nesting; ``rest`` are trees with the same nesting
+    down to ``tree``'s leaves (their entries there may be subtrees)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_map(fn, v, *(r[i] for r in rest))
+                for i, v in enumerate(tree)]
+    return fn(tree, *rest)
+
+
 def tree_bytes(tree) -> int:
     """Bytes of every tensor in a nested dict/list tree."""
     return sum(t.numel() * t.element_size() for t in _leaves(tree))

@@ -18,9 +18,11 @@ Modes:
 only when asked for) is where ``init`` and ``init_cache`` put their
 tensors. ``impl`` picks the decode step's kernels as ``kernels.ops`` does
 (None by device, ``"plain"`` forces the plain versions); prefill and
-forward run no kernel, as in JAX. ``forward`` and ``loss`` compute the
-training objective's forward pass only: the port has no training loop
-yet. ``prefill`` and ``decode_step`` run without autograd.
+forward run no kernel, as in JAX. ``forward`` and ``loss`` are
+differentiable end to end (``training.train`` takes the loss's gradients
+with ``torch.autograd.grad``; no kernel is on that path, and none needs a
+backward of its own); ``prefill`` and ``decode_step`` run without
+autograd.
 """
 
 from __future__ import annotations

@@ -7,9 +7,13 @@ Layer structure (pre-norm residual):
 
 The stack is a Python loop over the flat per-layer list (``params
 ["layers"]``). JAX factors depth into an unrolled prefix plus a scanned
-period to keep its compiled program small, and offers ``remat`` and
-``force_unroll`` on that scan; eager PyTorch runs each layer as it comes,
-so there is no scan and those config fields have nothing to act on here.
+period to keep its compiled program small; eager PyTorch runs each layer
+as it comes, so there is no scan and ``force_unroll`` has nothing to act
+on here. ``cfg.remat`` keeps JAX's meaning, a rematerialised forward
+(``jax.checkpoint`` of each scanned period): in train mode with autograd
+on, each layer runs under ``torch.utils.checkpoint`` and keeps only its
+inputs, recomputing its activations in the backward pass. The gradients
+are the same; only the memory changes.
 
 ``impl`` (as in ``kernels.ops``: None picks by device, ``"plain"`` forces
 the plain versions) reaches the two kernels of the decode step: split-KV
@@ -19,9 +23,11 @@ attention on full KV caches and the grouped GEMM of the sorted MoE.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, List, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba2, moe
@@ -85,8 +91,12 @@ def stack_forward(params, cfg: ArchConfig, x: torch.Tensor, *, mode: str,
     new."""
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     new_layers: List = []
+    run = layer_forward
+    if cfg.remat and mode == "train" and torch.is_grad_enabled():
+        run = functools.partial(torch.utils.checkpoint.checkpoint,
+                                layer_forward, use_reentrant=False)
     for i, spec in enumerate(cfg.layer_plan().flat()):
-        x, nc, aux = layer_forward(
+        x, nc, aux = run(
             params["layers"][i], cfg, spec, x, mode=mode,
             positions=positions,
             cache=cache["layers"][i] if cache is not None else None,

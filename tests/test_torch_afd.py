@@ -292,7 +292,10 @@ def test_port_imports_no_jax_and_no_repro():
         "repro_torch.configs.jamba_v0_1_52b"} | {
         f"repro_torch.models.{m}" for m in ("transformer", "model")} | {
         "repro_torch.serving.engine", "repro_torch.launch.serve",
-        "repro_torch.launch.presets"} | {
+        "repro_torch.launch.presets", "repro_torch.launch.train",
+        "repro_torch.serving.mtp"} | {
+        f"repro_torch.training.{m}" for m in (
+            "optimizer", "data", "train", "checkpoint")} | {
         f"repro_torch.configs.{m}" for m in (
             "qwen1_5_0_5b", "qwen3_8b", "granite_8b", "h2o_danube_1_8b",
             "internvl2_2b", "whisper_small", "mamba2_2_7b")} <= imported
