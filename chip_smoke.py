@@ -14,7 +14,9 @@ Phases, each of which fails the run by raising:
    in bf16 and f32, with its time beside its bound, the plain version's
    time and one PyTorch library call's time (CUDA events, L2 flushed, no
    host gaps inside the timed call). The dense grouped GEMM, flash prefill
-   and split-KV come first, on one seeded generator. Then the grouped GEMM's
+   and split-KV come first, on one seeded generator; the grouped GEMM's
+   check includes its block mode, fused, over 4 blocks of the experts
+   (rows of pairs outside the block exactly 0). Then the grouped GEMM's
    int8 and int4 weight modes (weights quantized on the card from seeded
    bf16 weights by the port's helpers; the serving path never runs them,
    so their launches are those of their checks), and both attention
@@ -123,7 +125,42 @@ Phases, each of which fails the run by raising:
    gap ≤ 1e-3 of the row's largest |logit|), and a noisy draft's
    ``MTPStats`` are logged beside it.
 
-With ``--profile`` a last phase (13) times 12 steady engine ticks (16
+13. Expert parallelism (``parallel.ep``, ``parallel.collectives``) under
+   one NCCL group at world size 1 on a (1, 1) ("data", "model") mesh,
+   the counts reset before each part and read after it: a. ``moe_ep_decode``
+   on one full-width granite MoE layer (64 tokens, bf16 and f32) must be
+   bit-identical to ``moe_sorted`` on the kernels (one rank holds every
+   expert) and within ``EP_BF16_RTOL`` (bf16; f32 1e-5) of the plain
+   path, in 2 grouped-GEMM launches; and ``expert_ffn`` over each of 4
+   blocks of the experts (``first_expert``, the block mode that EP over
+   several ranks and the F role over N_F blocks run; 64 and 512 rows)
+   within the same tolerance of its plain path, tokens with no pair in
+   the block exactly 0, the blocks' sum against the whole-expert call;
+   b. ``moe_ep_train`` on 8 x 128 tokens, forward and backward, at
+   capacity factor 8 in float32 within 1e-4 of the oracle ``moe_ffn_ref``
+   with no drop, at 2.0 in bf16 with its drop fraction logged, at 2.0 in
+   float32 against the same call on the CPU (the group's gloo backend):
+   output and every gradient leaf within ``TRAIN_GRAD_RTOL``, aux and
+   drop fraction equal; every gradient finite and nonzero, no kernel
+   launched (capacity einsums, as in JAX); c. ``moe_ep_decode_etp`` as a;
+   d. ``splitkv_decode_attention`` over one KV shard at granite's heads
+   (8 x T 1024) against the split-KV kernel alone, bit-identical or
+   within 1e-6 (logged which); e. phase 10's serve with the EP hook
+   installed (prefill through the EP train path, decode through the EP
+   decode): every request completes, phase 10's launches per tick, token
+   agreement with phase 10 logged, the path check gated at
+   ``PATH_REL_TOL`` under replayed routing; f. phase 4's AFD engine with
+   the F role over four blocks of 8 experts on the one card
+   (``f_devices = [cuda:0] * 4``) on 8 requests: all complete, bytes
+   equal Eq. 9/17 in every window, 8 grouped-GEMM launches per M2N cycle
+   against N_F = 1's 2, logits within ``PATH_REL_TOL`` of N_F = 1's
+   under replayed routing (free routing logged); g.
+   one Kimi K2 MoE layer at full width (384 experts, d 7168, 33.8 GB of
+   bf16 experts): ``moe_ep_decode`` of 64 tokens within ``EP_BF16_RTOL``
+   of ``moe_ffn_ref``, and both grouped-GEMM shapes timed beside their
+   bytes bound and ``torch._grouped_mm``.
+
+With ``--profile`` a last phase (14) times 12 steady engine ticks (16
 sequences, prefill chunks interleaved with decode), traces the same ticks
 with ``torch.profiler`` and prints the device's busy share of the wall
 clock and its time by kernel; it fails unless split-KV ran one device
@@ -243,6 +280,9 @@ MAMBA_BF16_LAYERS = 4
 MAMBA_BF16_TOKENS = 32
 MAMBA_BF16_TOL = 5e-2
 
+# Phase 13: the EP decode at bf16 against the plain path (and Kimi K2's
+# layer against the float32 oracle): relative error of the whole output
+EP_BF16_RTOL = 1e-2
 # Phase 12: the JAX package's training driver (launch/train.py) at full
 # width and depth, its other flags at their defaults (lr 3e-3, seed 0)
 TRAIN_ARGV = ["--arch", "granite-moe-1b-a400m", "--preset", "full",
@@ -383,6 +423,57 @@ def routing(torch, tokens: int, n_experts: int, top_k: int, gen):
     return sort_idx, sizes
 
 
+def fused_block_rows(torch, cfg, dt, tol, gen, n_blocks: int = 4) -> None:
+    """The grouped GEMM's block mode, fused: each of ``n_blocks`` blocks
+    of the experts (as EP decode over that many ranks and the F role over
+    that many F blocks run it) at the decode (8 tokens, 64 rows) and
+    prefill-chunk (64 tokens, 512 rows) shapes. Pairs routed outside the
+    block sort past ``sum(group_sizes)``: the gate|up rows there and the
+    down GEMM's scattered rows of those pairs must be exactly 0, and all
+    rows within phase 3's tolerance of the plain version."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.moe import sort_by_local_expert
+    E, D, F, k = cfg.n_experts, cfg.d_model, cfg.moe_d_ff, cfg.top_k
+    e_loc = E // n_blocks
+    for label, tokens in (("decode", 8), ("prefill", 64)):
+        m = tokens * k
+        topi = torch.topk(torch.rand((tokens, E), generator=gen,
+                                     device="cuda"), k, dim=-1).indices
+        worst, outside = 0.0, 0
+        for j in range(n_blocks):
+            sort_idx, sizes = sort_by_local_expert(topi, j * e_loc, e_loc)
+            flat = topi.reshape(-1)
+            away = (flat < j * e_loc) | (flat >= (j + 1) * e_loc)
+            live = int(sizes.sum())
+            x = torch.randn((tokens, D), generator=gen, device="cuda").to(dt)
+            wi = torch.randn((e_loc, D, 2 * F), generator=gen,
+                             device="cuda").to(dt)
+            h = torch.randn((m, F), generator=gen, device="cuda").to(dt)
+            wo = torch.randn((e_loc, F, D), generator=gen,
+                             device="cuda").to(dt)
+            up_kw = dict(row_index=sort_idx // k)
+            dn_kw = dict(out_index=sort_idx, out_rows=m)
+            up = ops.grouped_gemm(x, wi, sizes, **up_kw)
+            dn = ops.grouped_gemm(h, wo, sizes, **dn_kw)
+            name = f"grouped_gemm block {j}/{n_blocks} {label} {dt}"
+            worst = max(worst, check_close(
+                f"{name} gate|up", up,
+                ops.grouped_gemm(x, wi, sizes, impl="plain", **up_kw),
+                tol(D), show=False), check_close(
+                f"{name} down", dn,
+                ops.grouped_gemm(h, wo, sizes, impl="plain", **dn_kw),
+                tol(F), show=False))
+            if (live != m - int(away.sum()) or bool(up[live:].any())
+                    or bool(dn[away].any())):
+                raise AssertionError(f"{name}: rows of pairs routed outside "
+                                     "the block are not exactly 0")
+            outside += m - live
+        log(f"  grouped_gemm fused, {n_blocks} blocks of {e_loc} experts, "
+            f"{label} ({m} rows) {dt}: max_abs_err={worst:.3e} against the "
+            f"plain version; the {outside} rows of pairs routed outside "
+            f"their block exactly 0")
+
+
 def kernel_grouped_gemm(torch, timer, cfg, gen):
     from repro_torch.kernels import ops
     E, D, F, k = cfg.n_experts, cfg.d_model, cfg.moe_d_ff, cfg.top_k
@@ -420,6 +511,7 @@ def kernel_grouped_gemm(torch, timer, cfg, gen):
                     ops.grouped_gemm(x, w, sizes, impl="plain"), tol[dt](D))
         if got[48:].abs().max() != 0:
             raise AssertionError("surplus rows of the grouped GEMM are not 0")
+        fused_block_rows(torch, cfg, dt, tol[dt], seeded(torch, 23))
         if dt == torch.float32:
             # fused gather + scatter == unfused composition, bit for bit
             sort_idx, sizes = routing(torch, 64, E, k, gen)
@@ -1327,16 +1419,16 @@ def fleet(torch, cfg, params, card) -> None:
 
     rt0 = engines[0].rt
     fleet_path_check(torch, cfg, params, rt0)
-    rt1 = rescale(rt0, rt0.a_device, rt0.f_device)
-    shared = (rt1.f_layers[0]["wi"].data_ptr()
-              == rt0.f_layers[0]["wi"].data_ptr())
+    rt1 = rescale(rt0, rt0.a_device, rt0.f_devices)
+    shared = (rt1.f_shards[0][0]["wi"].data_ptr()
+              == rt0.f_shards[0][0]["wi"].data_ptr())
     tokens = torch.tensor([7, 123], dtype=torch.int32, device="cuda")
     logits = []
     for rt in (rt0, rt1):
         caches, pos = rt.init_cache(2, 32)
         logits.append(rt.decode_step(tokens, caches, pos)[0])
     same = torch.equal(*logits)
-    log(f"  rescale of replica 0 on {rt1.a_device}/{rt1.f_device}: expert "
+    log(f"  rescale of replica 0 on {rt1.a_device}/{rt1.f_devices[0]}: expert "
         f"weights shared {shared}; decode logits bit-identical {same}")
     if not (same and shared):
         raise AssertionError("the rescaled runtime's logits differ, or it "
@@ -1818,7 +1910,8 @@ def ep_serve(torch, card) -> dict:
     """Phase 10: ``repro_torch.launch.serve`` in EP mode (the single-program
     ``DecodeEngine``) at full width and depth on granite-moe-1b-a400m,
     bf16, seed-0 weights (phase 4's numbers); then ``Model`` on the kernels
-    against the plain versions on 8 of its prompts."""
+    against the plain versions on 8 of its prompts. Returns the serve's
+    launches and each request's tokens (phase 13 serves it again)."""
     from repro_torch.kernels import ops
     from repro_torch.launch import serve as serve_mod
     ops.reset_launch_counts()
@@ -1852,6 +1945,7 @@ def ep_serve(torch, card) -> dict:
     cfg, params = eng.cfg, eng.params
     prompts = torch.stack([torch.as_tensor(r.prompt) for r in
                            out["requests"][:8]]).to("cuda")
+    outputs = [list(r.output) for r in out["requests"]]
     del eng, out
     err = model_path_check(torch, cfg, params, {"tokens": prompts}, 16, 512,
                            replay=True)
@@ -1860,7 +1954,7 @@ def ep_serve(torch, card) -> dict:
     if err["replayed"] > PATH_REL_TOL:
         raise AssertionError("the single-program kernel path disagrees with "
                              "the plain path under the same routing")
-    return launches
+    return {"launches": launches, "outputs": outputs}
 
 
 def _fresh(torch, cfg):
@@ -2418,6 +2512,504 @@ def training(torch, card) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the expert-parallel layer under NCCL at world size 1
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def nccl_world1(torch):
+    """One NCCL rank on the card (file rendezvous in a temporary
+    directory) and its (1, 1) ("data", "model") mesh; CPU tensors take
+    the group's gloo backend (13b's CPU reference). The group is
+    destroyed on exit so that later phases are untouched."""
+    import tempfile
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    with tempfile.TemporaryDirectory() as d:
+        dist.init_process_group("cpu:gloo,cuda:nccl",
+                                init_method=f"file://{d}/rdv", rank=0,
+                                world_size=1)
+        try:
+            yield init_device_mesh("cuda", (1, 1),
+                                   mesh_dim_names=("data", "model"))
+        finally:
+            dist.destroy_process_group()
+
+
+def _launches_of(torch, fn):
+    """(result, kernel launches of ``fn``) with the counts reset just
+    before and read just after."""
+    from repro_torch.kernels import ops
+    ops.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, ops.launch_counts()
+
+
+def _moe_layer(torch, cfg, gen, dtype):
+    """Random routed-expert weights of one MoE layer (router float32,
+    experts in ``dtype``), scaled by 1/sqrt(fan-in)."""
+    d, e, m = cfg.d_model, cfg.n_experts, cfg.moe_d_ff
+
+    def normal(shape, fan_in, dt):
+        w = torch.randn(shape, generator=gen, device="cuda", dtype=dt)
+        return w.mul_(fan_in ** -0.5)
+    return {"router": normal((d, e), d, torch.float32),
+            "wi": normal((e, d, 2 * m), d, dtype),
+            "wo": normal((e, m, d), m, dtype)}
+
+
+def _rel(a, b) -> float:
+    return float((a.float() - b.float()).norm() / b.float().norm())
+
+
+def ep_expert_blocks(torch, cfg, gen, n_blocks: int = 4) -> dict:
+    """13a, the block mode that EP decode over several ranks and the F
+    role over N_F blocks run: ``moe.expert_ffn`` over each of 4 blocks of
+    granite's 32 experts (``first_expert`` j·8) at the decode (8 tokens,
+    64 rows) and prefill-chunk (64 tokens, 512 rows) shapes, bf16 and
+    f32. Each block on the kernels against its plain path (relative error
+    ≤ EP_BF16_RTOL in bf16, 1e-5 in f32), the tokens with no pair in the
+    block exactly 0, and the blocks' sum against the whole-expert call at
+    the same tolerance. Phase 3 holds the two fused GEMMs of this mode
+    row for row (``fused_block_rows``)."""
+    from repro_torch.models import moe
+    out = {}
+    for dt in (torch.bfloat16, torch.float32):
+        name = str(dt).split(".")[-1]
+        c = dataclasses.replace(cfg, dtype=name, param_dtype=name)
+        p = _moe_layer(torch, c, gen, dt)
+        e_loc = c.n_experts // n_blocks
+        tol = EP_BF16_RTOL if dt == torch.bfloat16 else 1e-5
+        for label, tokens in (("decode", 8), ("prefill", 64)):
+            x = torch.randn((tokens, c.d_model), generator=gen,
+                            device="cuda").to(dt)
+            _, topw, topi = moe.route(p, c, x)
+            whole = moe.expert_ffn(c, p["wi"], p["wo"], x, topw, topi)
+            total, worst, empty = torch.zeros_like(whole), 0.0, 0
+            for j in range(n_blocks):
+                blk = slice(j * e_loc, (j + 1) * e_loc)
+                got, plain = (moe.expert_ffn(c, p["wi"][blk], p["wo"][blk],
+                                             x, topw, topi, impl,
+                                             first_expert=j * e_loc)
+                              for impl in (None, "plain"))
+                worst = max(worst, _rel(got, plain))
+                away = ((topi < blk.start) | (topi >= blk.stop)).all(-1)
+                empty += int(away.sum())
+                if bool(got[away].any()):
+                    raise AssertionError(f"expert block {j} {label} {name}: "
+                                         "tokens routed elsewhere are not 0")
+                total += got
+            rel_sum = _rel(total, whole)
+            log(f"  expert_ffn over {n_blocks} blocks of {e_loc} experts, "
+                f"{label} ({tokens * c.top_k} rows) {name}: worst block "
+                f"against its plain path rel_err {worst:.3e}, the blocks' "
+                f"sum against the whole-expert call rel_err {rel_sum:.3e} "
+                f"(≤ {tol}); {empty} token rows with no pair in their "
+                "block exactly 0")
+            if worst > tol or rel_sum > tol:
+                raise AssertionError(f"expert blocks {label} {name} disagree")
+            out[f"{label}_{name}"] = {"block_rel_err_plain": worst,
+                                      "sum_rel_err_whole": rel_sum}
+    return out
+
+
+def ep_decode_granite(torch, mesh, cfg, gen) -> dict:
+    """13a and 13c: ``moe_ep_decode`` and ``moe_ep_decode_etp`` on one
+    full-width granite MoE layer (64 tokens) at world size 1, where the
+    one rank holds every expert, against ``moe_sorted`` on the kernels
+    (expected bit-identical: the wiring through the mesh adds nothing)
+    and on the plain path (bf16: relative error ≤ EP_BF16_RTOL; f32
+    ≤ 1e-5). ``ep_expert_blocks`` holds the block mode that more ranks
+    run."""
+    from repro_torch.models import moe
+    from repro_torch.parallel import ep
+    out = {}
+    for dt in (torch.bfloat16, torch.float32):
+        c = dataclasses.replace(cfg, dtype=str(dt).split(".")[-1],
+                                param_dtype=str(dt).split(".")[-1])
+        p = _moe_layer(torch, c, gen, dt)
+        x = torch.randn((8, 8, c.d_model), generator=gen,
+                        device="cuda").to(dt)
+        epc = ep.EPConfig(mesh=mesh)
+        for name, fn in (("moe_ep_decode", ep.moe_ep_decode),
+                         ("moe_ep_decode_etp", ep.moe_ep_decode_etp)):
+            cfg_e = dataclasses.replace(epc, etp=name.endswith("etp"))
+            got, launches = _launches_of(torch, lambda: fn(p, c, x, cfg_e))
+            kern = moe.moe_sorted(p, c, x)
+            plain = moe.moe_sorted(p, c, x, impl="plain")
+            same = bool(torch.equal(got, kern))
+            rel = _rel(got, plain)
+            tol = EP_BF16_RTOL if dt == torch.bfloat16 else 1e-5
+            log(f"  {name} {dt} (64 tokens, E {c.n_experts}, top-"
+                f"{c.top_k}, d {c.d_model}, moe_d_ff {c.moe_d_ff}): "
+                f"bit-identical to moe_sorted on the kernels {same}; "
+                f"against the plain path rel_err {rel:.3e} (≤ {tol}), "
+                f"max_abs_err {float((got - plain).abs().max()):.3e}; "
+                f"launches {launches}")
+            if not same or rel > tol or launches["grouped_gemm"] != 2:
+                raise AssertionError(f"{name} {dt} disagrees")
+            out[f"{name}_{str(dt).split('.')[-1]}"] = {
+                "bit_identical": same, "rel_err_plain": rel}
+    return out
+
+
+def ep_train_granite(torch, mesh, cfg, gen) -> dict:
+    """13b: ``moe_ep_train`` on one full-width granite MoE layer, 8 x 128
+    tokens, forward and backward. At capacity factor 8 (no drops) in
+    float32 against the oracle ``moe_ffn_ref``; at the default 2.0 in
+    bf16 with its drop fraction logged; at 2.0 in float32 against the
+    same call on the CPU (gloo) from the same inputs: output, aux and
+    drop fraction, and every gradient leaf within TRAIN_GRAD_RTOL as
+    phase 12c holds the model's. Gradients finite and nonzero."""
+    from repro_torch.kernels.ref import moe_ffn_ref
+    from repro_torch.parallel import ep
+    out = {}
+    for cf, dt in ((8.0, torch.float32), (2.0, torch.bfloat16),
+                   (2.0, torch.float32)):
+        name = str(dt).split(".")[-1]
+        c = dataclasses.replace(cfg, dtype=name, param_dtype=name)
+        p = {k: v.requires_grad_() for k, v in
+             _moe_layer(torch, c, gen, dt).items()}
+        x = torch.randn((8, 128, c.d_model), generator=gen,
+                        device="cuda").to(dt)
+        epc = ep.EPConfig(mesh=mesh, dp_axes=("data",), capacity_factor=cf)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (y, aux), launches = _launches_of(
+            torch, lambda: ep.moe_ep_train(p, c, x, epc))
+        (y.float().square().sum() + 0.01 * aux).backward()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        with torch.no_grad():
+            wi_l, wo_l = ep._local_experts(p, c, epc)
+            drop = float(ep._moe_ep_train_local(
+                x.reshape(-1, c.d_model), p["router"], wi_l, wo_l, cfg=c,
+                ep=epc)[2])
+        norms = {k: float(v.grad.float().norm()) for k, v in p.items()}
+        row = {"drop_frac": drop, "aux": float(aux.detach()),
+               "grad_norms": norms,
+               "fwd_bwd_s": wall, "launches": launches}
+        msg = (f"  moe_ep_train {name} capacity factor {cf} (8 x 128 "
+               f"tokens): drop fraction {drop:.4f}, aux {row['aux']:.4f}, "
+               f"gradient norms {norms}, forward + backward {wall:.3f} s; "
+               f"launches {launches}")
+        if cf == 2.0 and dt == torch.float32:
+            row.update(_ep_train_vs_cpu(torch, c, p, x, y, aux, drop, epc))
+            msg += (f"; against the CPU: output rel_err "
+                    f"{row['out_rel_err_cpu']:.3e}, aux "
+                    f"{row['aux_cpu']:.6f}, drop fraction "
+                    f"{row['drop_frac_cpu']:.4f}, gradient rel_err "
+                    f"{row['grad_rel_err_cpu']} (each ≤ {TRAIN_GRAD_RTOL})")
+        if cf == 8.0:
+            with torch.no_grad():
+                want = moe_ffn_ref(x.reshape(-1, c.d_model), p["router"],
+                                   p["wi"], p["wo"], c.top_k,
+                                   c.router_renorm).reshape(x.shape)
+            row["max_abs_err"] = float((y.detach() - want).abs().max())
+            msg += (f"; against moe_ffn_ref max_abs_err "
+                    f"{row['max_abs_err']:.3e} (≤ 1e-4)")
+        log(msg)
+        bad = [k for k, v in norms.items() if not (math.isfinite(v) and v > 0)]
+        cpu_errs = [row.get("out_rel_err_cpu", 0.0),
+                    *row.get("grad_rel_err_cpu", {}).values()]
+        if bad or row.get("max_abs_err", 0.0) > 1e-4 or (
+                cf == 8.0 and drop > 0) or any(launches.values()) or (
+                max(cpu_errs) > TRAIN_GRAD_RTOL) or row.get(
+                "drop_frac_cpu", drop) != drop or abs(
+                row.get("aux_cpu", row["aux"]) - row["aux"]) > 1e-5:
+            raise AssertionError(f"moe_ep_train {name}: {row}")
+        out[f"cf{cf}_{name}"] = row
+    return out
+
+
+def _ep_train_vs_cpu(torch, cfg, p, x, y, aux, drop, epc) -> dict:
+    """``moe_ep_train`` on the CPU from the card's inputs and weights
+    (float32; the group's CPU tensors take its gloo backend): the card's
+    output and gradients against it, relative error per leaf."""
+    from repro_torch.parallel import ep
+    pc = {k: v.detach().cpu().requires_grad_() for k, v in p.items()}
+    xc = x.detach().cpu()
+    t0 = time.perf_counter()
+    yc, auxc = ep.moe_ep_train(pc, cfg, xc, epc)
+    (yc.square().sum() + 0.01 * auxc).backward()
+    with torch.no_grad():
+        wi_l, wo_l = ep._local_experts(pc, cfg, epc)
+        drop_c = float(ep._moe_ep_train_local(
+            xc.reshape(-1, cfg.d_model), pc["router"], wi_l, wo_l, cfg=cfg,
+            ep=epc)[2])
+
+    def rel(a, b):
+        a, b = a.detach().cpu().double(), b.detach().double()
+        return float((a - b).norm() / b.norm().clamp(min=1e-12))
+    return {"out_rel_err_cpu": rel(y, yc), "aux_cpu": float(auxc.detach()),
+            "drop_frac_cpu": drop_c, "cpu_s": time.perf_counter() - t0,
+            "grad_rel_err_cpu": {k: rel(p[k].grad, pc[k].grad) for k in p}}
+
+
+def ep_splitkv_granite(torch, mesh, cfg, gen) -> dict:
+    """13d: ``splitkv_decode_attention`` over one KV shard at granite's
+    heads (8 sequences, T 1024, phase 3's lengths) against the split-KV
+    kernel alone: one shard weighs its partial by exactly 1, so the
+    result is expected bit-identical; else it is held at 1e-6."""
+    from repro_torch.kernels import ops
+    from repro_torch.parallel import collectives as coll
+    out = {}
+    lengths = torch.tensor([1, 63, 64, 65, 300, 512, 777, 1024],
+                           dtype=torch.int32, device="cuda")
+    for dt in (torch.bfloat16, torch.float32):
+        q = torch.randn((8, cfg.n_heads, cfg.d_head), generator=gen,
+                        device="cuda").to(dt)
+        k, v = (torch.randn((8, 1024, cfg.n_kv_heads, cfg.d_head),
+                            generator=gen, device="cuda").to(dt)
+                for _ in range(2))
+        got, launches = _launches_of(torch, lambda: coll.splitkv_decode_attention(
+            q, k, v, lengths - 1, mesh))
+        want = ops.splitkv_attention(q, k, v, lengths)
+        same = bool(torch.equal(got, want))
+        err = float((got.float() - want.float()).abs().max())
+        log(f"  splitkv_decode_attention {dt}: bit-identical to the kernel "
+            f"alone {same}" + ("" if same else f", max_abs_err {err:.3e} "
+                               "(≤ 1e-6)") + f"; launches {launches}")
+        if (not same and err > 1e-6) or launches["splitkv_attention"] != 1:
+            raise AssertionError(f"split-KV over one shard {dt}: {err}")
+        out[str(dt).split(".")[-1]] = {"bit_identical": same,
+                                       "max_abs_err": err}
+    return out
+
+
+def ep_serve_hooked(torch, mesh, card, phase10) -> dict:
+    """13e: phase 10's ``DecodeEngine`` workload with the EP hook
+    installed: prefill through ``moe_ep_train``, decode through
+    ``moe_ep_decode``. Every request completes; launches per tick as in
+    phase 10; token agreement with phase 10's run logged; then the path
+    check gated at ``PATH_REL_TOL`` with replayed routing."""
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.parallel import ep
+    _free(torch)
+    epc = ep.EPConfig(mesh=mesh, dp_axes=("data",))
+    with ep.activate(epc):
+        out, launches = _launches_of(torch, lambda: serve_mod.run(EP_ARGV))
+        eng, wall = out["engine"], out["wall_s"]
+        st = eng.stats
+        done = sum(r.done for r in out["requests"])
+        outputs = [list(r.output) for r in out["requests"]]
+        agree = sum(a == b for a, b in zip(outputs, phase10["outputs"]))
+        tok_agree = sum(x == y for a, b in zip(outputs, phase10["outputs"])
+                        for x, y in zip(a, b))
+        layers = eng.cfg.n_layers
+        expected = {"grouped_gemm": 2 * layers * st.ticks,
+                    "grouped_gemm_int8": 0, "grouped_gemm_int4": 0,
+                    "flash_prefill": 0, "splitkv_attention": layers * st.ticks}
+        log(f"  {card}: {done}/{EP_REQUESTS} requests complete, "
+            f"{st.tokens_out} tokens, {st.prefills} prefills, {st.ticks} "
+            f"ticks, requeued {st.requeued} in {wall:.2f} s wall "
+            f"({st.throughput(wall):.1f} tokens/s); launches {launches} "
+            f"({launches['grouped_gemm'] / max(st.ticks, 1):.0f} grouped GEMM "
+            f"and {launches['splitkv_attention'] / max(st.ticks, 1):.0f} "
+            f"split-KV per tick); requests whose tokens equal phase 10's "
+            f"{agree}/{EP_REQUESTS}, tokens {tok_agree}/"
+            f"{sum(map(len, outputs))}")
+        if done != EP_REQUESTS or launches != expected:
+            raise AssertionError(f"EP-hooked serve: {done} complete, "
+                                 f"launches {launches} != {expected}")
+        cfg, params = eng.cfg, eng.params
+        prompts = torch.stack([torch.as_tensor(r.prompt) for r in
+                               out["requests"][:8]]).to("cuda")
+        del eng, out
+        err = model_path_check(torch, cfg, params, {"tokens": prompts}, 16,
+                               512, replay=True)
+    log(f"  gate: replayed-routing rel_err {err['replayed']:.3e} ≤ "
+        f"{PATH_REL_TOL} (free routing {err['free']:.3e}, logged)")
+    if err["replayed"] > PATH_REL_TOL:
+        raise AssertionError("the EP-hooked kernel path disagrees with the "
+                             "plain path under the same routing")
+    return {"wall_s": wall, "ticks": st.ticks, "launches": launches,
+            "requests_equal_phase10": agree, "tokens_equal_phase10": tok_agree,
+            "path_rel_err": err["replayed"], "path_rel_err_free": err["free"]}
+
+
+def afd_four_f_blocks(torch, cfg, card) -> dict:
+    """13f: phase 4's AFD engine with the F role over four F blocks on the
+    one card (``f_devices = [cuda:0] * 4``: 4 blocks of 8 experts) on 8
+    requests: all complete, bytes equal Eq. 9/17 in every window, and 8
+    grouped-GEMM launches per M2N cycle against N_F = 1's 2; then its
+    logits against N_F = 1's on one prefill chunk and 4 decode steps,
+    gated with N_F 4 replaying N_F 1's expert choices (the block partials
+    sum in another order, which flips near-tie routes downstream; the
+    free-routing error is logged)."""
+    from repro_torch.models.params import init_params
+    from repro_torch.parallel.afd import AFDRuntime
+    from repro_torch.serving.afd_engine import AFDServeEngine
+    from repro_torch.serving.workload import (LengthDist, Phase,
+                                              TrafficProfile, generate_trace)
+    _free(torch)
+    params = init_params(cfg, seed=0, device="cuda")
+    profile = TrafficProfile(
+        name="chip-smoke", phases=(Phase(2.0, 12.0),),
+        prompt_len=LengthDist(64, 512), output_len=LengthDist(16, 64))
+    trace = generate_trace(profile, seed=0, max_requests=8)
+    out = {}
+    for n_f in (1, 4):
+        rt = AFDRuntime(cfg, params, f_devices=["cuda"] * n_f)
+        eng = AFDServeEngine(rt, max_len=1024, n_bo=2, mb_slots=8,
+                             prefill_chunk=64, tick_seconds=None)
+        t0 = time.perf_counter()
+        _, launches = _launches_of(torch, lambda: eng.run(trace,
+                                                          max_ticks=20_000))
+        wall = time.perf_counter() - t0
+        s = eng.summary()
+        per_cycle = launches["grouped_gemm"] / rt.stats.dispatches
+        log(f"  N_F {n_f}: {s['completed']}/{len(trace)} completed, "
+            f"{s['tokens_out']} tokens in {wall:.2f} s wall, "
+            f"{rt.stats.dispatches} M2N cycles, bytes_match_all "
+            f"{s['bytes_match_all']}; grouped-GEMM launches "
+            f"{launches['grouped_gemm']} = {per_cycle:g} per cycle; "
+            f"launches {launches}")
+        if (s["completed"] != len(trace) or not s["bytes_match_all"]
+                or per_cycle != 2 * n_f):
+            raise AssertionError(f"AFD over {n_f} F blocks: {s}, {launches}")
+        out[f"n_f{n_f}"] = {"wall_s": wall, "cycles": rt.stats.dispatches,
+                            "grouped_gemm_per_cycle": per_cycle,
+                            "tokens_per_s": s["tokens_out"] / wall}
+    gen = seeded(torch, 17)
+    tokens = torch.randint(1, cfg.vocab_size, (2, 68), generator=gen,
+                           device="cuda", dtype=torch.int32)
+
+    def run(n_f, calls, replay=None):
+        rt = AFDRuntime(cfg, params, f_devices=["cuda"] * n_f)
+        with recording_routes(calls, replay):
+            caches, pos = rt.init_cache(2, 128)
+            lg, caches, pos = rt.prefill(tokens[:, :64], caches, pos)
+            steps = [lg]
+            for j in range(64, 68):
+                lg, caches, pos = rt.decode_step(tokens[:, j], caches, pos)
+                steps.append(lg[:, None])
+        return torch.cat(steps, dim=1).float()
+    calls = {name: [] for name in ("one", "four", "replay")}
+    one, four = run(1, calls["one"]), run(4, calls["four"])
+    replayed = run(4, calls["replay"], calls["one"])
+    flips, _ = routing_flips(torch, calls["one"], calls["four"], cfg.top_k)
+    rel, rel_replayed = _rel(four, one), _rel(replayed, one)
+    log(f"  logits N_F 4 against N_F 1 (a 64-token chunk + 4 decode steps "
+        f"of 2 sequences): rel_err {rel:.3e} (free routing, logged), "
+        f"max_abs_err {float((four - one).abs().max()):.3e}; top-"
+        f"{cfg.top_k} routing disagreements {sum(flips)} of "
+        f"{sum(int(c[2].shape[0]) for c in calls['one'])} routed rows; "
+        f"N_F 4 replaying N_F 1's experts: rel_err {rel_replayed:.3e} ≤ "
+        f"{PATH_REL_TOL} (gate)")
+    if not torch.isfinite(four).all() or rel_replayed > PATH_REL_TOL:
+        raise AssertionError("four F blocks disagree with one")
+    out["logits_rel_err"] = rel_replayed
+    out["logits_rel_err_free"] = rel
+    return out
+
+
+def kimi_moe_layer(torch, mesh, timer, gen) -> dict:
+    """13g: one Kimi K2 MoE layer at full width (384 experts, top-8, d
+    7168, moe_d_ff 2048; bf16 experts 33.8 GB): ``moe_ep_decode`` of 64
+    tokens against the plain per-token oracle ``moe_ffn_ref`` (the plain
+    grouped GEMM's float32 copy of every expert, 45 GB, does not fit
+    beside them), then the two grouped-GEMM shapes' kernel time beside
+    their bytes bound and ``torch._grouped_mm``."""
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import moe_ffn_ref
+    from repro_torch.models import moe
+    from repro_torch.parallel import ep
+    _free(torch)
+    cfg = configs.get_config("kimi-k2-1t-a32b")
+    e, k, d, m = cfg.n_experts, cfg.top_k, cfg.d_model, cfg.moe_d_ff
+    t0 = time.perf_counter()
+    p = _moe_layer(torch, cfg, gen, torch.bfloat16)
+    torch.cuda.synchronize()
+    gb = sum(t.numel() * t.element_size() for t in p.values()) / 1e9
+    x = torch.randn((64, 1, d), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    epc = ep.EPConfig(mesh=mesh)
+    got, launches = _launches_of(torch, lambda: ep.moe_ep_decode(
+        p, cfg, x, epc))
+    out = {"decode_ms": timer(lambda: ep.moe_ep_decode(p, cfg, x, epc),
+                              iters=5)}
+    want = moe_ffn_ref(x.reshape(-1, d), p["router"], p["wi"], p["wo"], k,
+                       cfg.router_renorm).reshape(x.shape)
+    rel = _rel(got, want)
+    log(f"  {cfg.name} MoE layer: {gb:.2f} GB of weights built in "
+        f"{time.perf_counter() - t0:.1f} s; moe_ep_decode of 64 tokens "
+        f"{out['decode_ms']:.3f} ms; against moe_ffn_ref rel_err {rel:.3e} "
+        f"(≤ {EP_BF16_RTOL}), max_abs_err "
+        f"{float((got.float() - want.float()).abs().max()):.3e}; launches "
+        f"{launches}; peak allocated "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    if not torch.isfinite(got).all() or rel > EP_BF16_RTOL:
+        raise AssertionError("Kimi K2 MoE layer disagrees with moe_ffn_ref")
+    out["rel_err"] = rel
+    _, _, topi = moe.route(p, cfg, x.reshape(-1, d))
+    sort_idx, _, sizes = moe.sort_by_expert(topi, e)
+    visited = int((sizes > 0).sum())
+    offs = torch.cumsum(sizes, 0).to(torch.int32)
+    xf = x.reshape(-1, d)
+    h = torch.randn((64 * k, m), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    for part, kk, nn, fn, lib_x in (
+            ("gate|up", d, 2 * m,
+             lambda: ops.grouped_gemm(xf, p["wi"], sizes,
+                                      row_index=sort_idx // k),
+             xf[sort_idx // k].contiguous()),
+            ("down", m, d,
+             lambda: ops.grouped_gemm(h, p["wo"], sizes, out_index=sort_idx,
+                                      out_rows=64 * k), h)):
+        w = p["wi"] if part == "gate|up" else p["wo"]
+        ms = timer(fn)
+        library_ms = timer(lambda: torch._grouped_mm(lib_x, w, offs=offs))
+        rows = 64 if part == "gate|up" else 64 * k
+        nbytes = (rows * kk + visited * kk * nn + 64 * k * nn) * 2 + 64 * k * 4
+        b_ms, b_by = bound(nbytes, 2 * 64 * k * kk * nn, PEAK_BF16_FLOPS)
+        log(f"  grouped_gemm Kimi K2 decode {part} bf16 (M={64 * k}, "
+            f"K={kk}, N={nn}, {visited}/{e} experts, "
+            f"{visited * kk * nn * 2 / 1e9:.2f} GB of weights): kernel "
+            f"{ms:.4f} ms, library {library_ms:.4f} ms, bound {b_ms:.4f} ms "
+            f"({b_by}) = {b_ms / ms:.1%} of it")
+        out[part] = {"ms": ms, "library_ms": library_ms, "bound_ms": b_ms,
+                     "bound_by": b_by, "visited": visited}
+    del p
+    _free(torch)
+    return out
+
+
+def expert_parallel(torch, card, phase10) -> dict:
+    """Phase 13: the expert-parallel layer (``parallel.ep``,
+    ``parallel.collectives``) under one NCCL group at world size 1, the
+    EP hook on phase 10's serve, the AFD F role over four blocks and one
+    Kimi K2 MoE layer at full width."""
+    from repro_torch import configs
+    cfg = configs.get_config("granite-moe-1b-a400m")
+    t0 = time.perf_counter()
+    out = {}
+    timer = Timer(torch)
+    with nccl_world1(torch) as mesh:
+        log("  13a/13c: EP decode and ETP decode, one granite MoE layer")
+        out["decode"] = ep_decode_granite(torch, mesh, cfg, seeded(torch, 18))
+        out["blocks"] = ep_expert_blocks(torch, cfg, seeded(torch, 22))
+        log("  13b: EP train, one granite MoE layer, 8 x 128 tokens")
+        out["train"] = ep_train_granite(torch, mesh, cfg, seeded(torch, 19))
+        log("  13d: split-KV over one KV shard")
+        out["splitkv"] = ep_splitkv_granite(torch, mesh, cfg,
+                                            seeded(torch, 20))
+        log("  13e: phase 10's serve with the EP hook installed")
+        out["serve"] = ep_serve_hooked(torch, mesh, card, phase10)
+        log("  13f: the AFD engine with the F role over four blocks")
+        out["afd_n_f"] = afd_four_f_blocks(torch, cfg, card)
+        log("  13g: one Kimi K2 MoE layer at full width")
+        out["kimi"] = kimi_moe_layer(torch, mesh, timer, seeded(torch, 21))
+    del timer
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"  phase 13 {out['phase_s']:.1f} s")
+    log("  ep_summary13 " + json.dumps(out, default=str))
+    _free(torch)
+    return out
+
+
 def _steady_engine(cfg, params, warm_ticks: int):
     """16 requests of 256 prompt tokens arrive at once; after
     ``warm_ticks`` ticks the engine interleaves one 64-token prefill chunk
@@ -2485,7 +3077,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
                     help="trace a window of granite's engine ticks after "
-                         "phase 12")
+                         "phase 13")
     args = ap.parse_args()
 
     # phase 12's bitwise checks run cuBLAS under deterministic algorithms,
@@ -2571,17 +3163,21 @@ def main() -> int:
     _free(torch)
     log("[10] single-program EP serve: granite-moe-1b-a400m, 24 layers, "
         "bf16, python -m repro_torch serve " + " ".join(EP_ARGV))
-    ep_launches = ep_serve(torch, card)
+    phase10 = ep_serve(torch, card)
     log("[11] the other families at full width through Model")
     fam = families(torch, card)
     log("  launches over phases 10-11: " + json.dumps(
-        {"ep_serve": ep_launches, **{k: v["launches"]
+        {"ep_serve": phase10["launches"], **{k: v["launches"]
                                      for k, v in fam.items()}}))
     log("[12] training and MTP at full width: granite-moe-1b-a400m, 24 "
         "layers, bf16; qwen1.5-0.5b float32")
     training(torch, card)
+    log("[13] expert parallelism under NCCL at world size 1: EP decode, "
+        "ETP, EP train, split-KV, the EP-hooked serve, AFD over four F "
+        "blocks, a Kimi K2 MoE layer")
+    expert_parallel(torch, card, phase10)
     if args.profile:
-        log("[13] profiled window of engine ticks")
+        log("[14] profiled window of engine ticks")
         torch.cuda.empty_cache()
         profile_ticks(torch, cfg, init_params(cfg, seed=0, device="cuda"))
     log(f"done in {time.perf_counter() - t_start:.1f} s")

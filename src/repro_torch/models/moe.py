@@ -14,7 +14,9 @@ Counterpart of ``repro.models.moe``.
 
 Routing is softmax-then-top-k with optional renormalisation of the gate
 weights. The router weight stays float32, as in JAX. Shared experts are a
-plain gated MLP added to the routed output.
+plain gated MLP added to the routed output. ``set_ep_forward`` installs a
+strategy hook that ``moe_forward`` defers to (``parallel.ep``'s
+expert-parallel paths); ``expert_ffn`` also runs one block of the experts.
 """
 
 from __future__ import annotations
@@ -86,6 +88,21 @@ def sort_by_expert(topi: torch.Tensor, n_experts: int
     return sort_idx, inv_idx, group_sizes
 
 
+def sort_by_local_expert(topi: torch.Tensor, first: int, n_local: int
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The expert sort of one block of experts, ``[first, first +
+    n_local)``: (sort_idx (N·k,), group_sizes (n_local,) int32). Pairs
+    routed outside the block take the key ``n_local`` and sort to the
+    tail, past ``sum(group_sizes)``, where the grouped GEMM writes zeros:
+    the expert-parallel decode's local select (``parallel.ep``)."""
+    key = topi.reshape(-1).long() - first
+    key = torch.where((key >= 0) & (key < n_local), key,
+                      torch.full_like(key, n_local))
+    sort_idx = torch.argsort(key, stable=True)
+    group_sizes = torch.bincount(key, minlength=n_local + 1)[:n_local]
+    return sort_idx, group_sizes.to(torch.int32)
+
+
 # ---------------------------------------------------------------------------
 # Capacity-bounded dense dispatch
 # ---------------------------------------------------------------------------
@@ -140,13 +157,19 @@ def moe_capacity(params, cfg: ArchConfig, x: torch.Tensor,
 
 def expert_ffn(cfg: ArchConfig, wi: torch.Tensor, wo: torch.Tensor,
                tokens: torch.Tensor, topw: torch.Tensor, topi: torch.Tensor,
-               impl: Optional[str] = None) -> torch.Tensor:
+               impl: Optional[str] = None,
+               first_expert: int = 0) -> torch.Tensor:
     """Routed-expert FFN of tokens (N, D) given their gating: the dispatch
     gather rides into the gate|up grouped GEMM as ``row_index`` and the
     combine unpermute out of the down GEMM as an ``out_index`` scatter.
-    ``impl`` picks the kernel or the plain version (``kernels.ops``)."""
+    ``impl`` picks the kernel or the plain version (``kernels.ops``).
+
+    ``wi``/``wo`` may hold a block of the experts, ``first_expert`` and
+    on (``wi.shape[0]`` of them): pairs routed elsewhere then add 0, so
+    the blocks' outputs sum to the whole FFN's (expert parallelism)."""
     n, d = tokens.shape
-    sort_idx, _, group_sizes = sort_by_expert(topi, cfg.n_experts)
+    sort_idx, group_sizes = sort_by_local_expert(topi, first_expert,
+                                                 wi.shape[0])
     h = kops.grouped_gemm(tokens, wi.to(tokens.dtype), group_sizes,
                           impl=impl, row_index=sort_idx // cfg.top_k)
     ys = kops.grouped_gemm(_expert_ffn(cfg, h), wo.to(tokens.dtype),
@@ -168,11 +191,24 @@ def moe_sorted(params, cfg: ArchConfig, x: torch.Tensor,
     return out.reshape(x.shape)
 
 
+# Distributed strategy hook: ``parallel.ep`` installs its expert-parallel
+# forward here; None means single-program execution.
+_EP_FORWARD = None
+
+
+def set_ep_forward(fn) -> None:
+    global _EP_FORWARD
+    _EP_FORWARD = fn
+
+
 def moe_forward(params, cfg: ArchConfig, x: torch.Tensor,
                 mode: str = "train", impl: Optional[str] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Dispatch by phase: the capacity path for train and prefill, the
-    sorted grouped-GEMM path for decode. Returns (out, aux_loss)."""
+    sorted grouped-GEMM path for decode, or the installed EP hook.
+    Returns (out, aux_loss)."""
+    if _EP_FORWARD is not None:
+        return _EP_FORWARD(params, cfg, x, mode, impl)
     if mode == "train":
         return moe_capacity(params, cfg, x)
     return (moe_sorted(params, cfg, x, impl),

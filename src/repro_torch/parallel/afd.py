@@ -3,18 +3,20 @@ architecture on two device roles. Counterpart of ``repro.parallel.afd``.
 
   * **A role** — embeddings, attention mixers, norms, dense MLPs, shared
     experts, the router and the LM head.
-  * **F role** — the routed-expert weights of every MoE layer.
+  * **F role** — the routed-expert weights of every MoE layer, split
+    expert-parallel over the F devices when their count divides E.
 
 Per MoE layer and micro-batch the runtime performs the paper's M2N cycle:
 
     A: attention sublayer + router           (t_a)
-    dispatch: tokens + gating  A → F         (t_dispatch)  [.to(f_device)]
-    F: grouped-GEMM expert FFN               (t_f)
-    combine: routed outputs  F → A           (t_combine)   [.to(a_device)]
+    dispatch: tokens + gating  A → F         (t_dispatch)  [.to(f_devices)]
+    F: grouped-GEMM expert FFN per block     (t_f)
+    combine: routed outputs  F → A, summed   (t_combine)   [.to(a_device)]
 
 Both roles default to the one card; dispatch and combine are then no-op
 moves, and the byte counters still record what would cross the wire so
-the serving engine can check them against the Eq. 9/17 prediction.
+the serving engine can check them against the Eq. 9/17 prediction (once
+per cycle, whatever N_F).
 ``decode_step_3bo`` issues micro-batches in the 3BO rotation order; the
 rotation runs on one CUDA stream (overlapping it on separate streams is
 later work). ``rescale`` rebuilds a runtime on another role split.
@@ -98,20 +100,30 @@ class AFDRuntime:
     """Two-role decode/prefill runtime.
 
     ``device=None`` means the CUDA device (raises without one); ``a_device``
-    and ``f_device`` default to ``device``. ``impl`` picks the kernels as
+    defaults to ``device`` and ``f_devices`` to ``[device]``. The F role
+    runs on the N_F devices of ``f_devices``: when N_F divides the expert
+    count, device j holds the contiguous block of E / N_F experts from
+    j·E / N_F, and the F program runs each block's experts over the
+    tokens routed to them, whose partial outputs sum on the A device (the
+    combine); otherwise every F device holds all the experts and the
+    first runs them, as JAX's runtime replicates them.
+    A list may repeat a device. ``impl`` picks the kernels as
     ``kernels.ops`` does: None by device, ``"plain"`` forces the plain
     PyTorch versions.
     """
 
     def __init__(self, cfg: ArchConfig, params, device=None, a_device=None,
-                 f_device=None, impl: Optional[str] = None):
+                 f_devices: Optional[Sequence] = None,
+                 impl: Optional[str] = None):
         if not cfg.is_moe:
             raise ValueError(f"{cfg.name}: AFD requires routed experts")
         self.cfg = cfg
         self.specs: List[LayerSpec] = cfg.layer_plan().flat()
         device = resolve_device(device)
         self.a_device = resolve_device(a_device or device)
-        self.f_device = resolve_device(f_device or device)
+        self.f_devices = [resolve_device(d) for d in (f_devices or [device])]
+        n_f = len(self.f_devices)
+        self.experts_sharded = n_f > 1 and cfg.n_experts % n_f == 0
         self.impl = impl
         self.stats = AFDStats()
         a_params, f_layers = split_roles(params, cfg)
@@ -122,12 +134,17 @@ class AFDRuntime:
             # row counts, which would break chunk == decode bit-exactness.
             self.a_params["lm_head"] = {
                 "w": self.a_params["embed"]["tok"].T.contiguous()}
-        self.f_layers = [None if fl is None else _to(fl, self.f_device)
-                         for fl in f_layers]
+        # per MoE layer, one {"wi", "wo"} per F device: its block of the
+        # experts, or all of them when they are replicated
+        e_blk = cfg.n_experts // n_f if self.experts_sharded else cfg.n_experts
+        self.f_shards = [None if fl is None else [
+            {n: _to(fl[n][j * e_blk:(j + 1) * e_blk] if self.experts_sharded
+                    else fl[n], dev) for n in ("wi", "wo")}
+            for j, dev in enumerate(self.f_devices)] for fl in f_layers]
 
     def synchronize(self) -> None:
         """Wait for the runtime's devices (wall-clock timing)."""
-        for dev in {self.a_device, self.f_device}:
+        for dev in {self.a_device, *self.f_devices}:
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
 
@@ -168,7 +185,7 @@ class AFDRuntime:
 
     # ---- the M2N cycle -------------------------------------------------------
 
-    def _moe_cycle(self, lp, f_entry, x):
+    def _moe_cycle(self, lp, f_shards, x):
         """Norm → route (A) → dispatch → expert FFN (F) → combine (A)."""
         cfg = self.cfg
         h = apply_norm(lp["ln2"], cfg, x)
@@ -177,18 +194,21 @@ class AFDRuntime:
 
         # dispatch: M2N transfer A → F. Gating metadata is priced at 4 bytes
         # per index and per weight, as the Eq. 9/17 predictor assumes.
-        tok_f = tokens.to(self.f_device)
-        topw_f = topw.to(self.f_device)
-        topi_f = topi.to(self.f_device)
         self.stats.record(tokens.shape[0], cfg.d_model,
                           tokens.element_size(),
                           topi.numel() * 4 + topw.numel() * 4)
 
         # F role: the grouped GEMM kernel, dispatch gather and combine
-        # unpermute fused into it
-        routed_f = moe_mod.expert_ffn(cfg, f_entry["wi"], f_entry["wo"],
-                                      tok_f, topw_f, topi_f, self.impl)
-        routed = routed_f.to(self.a_device)         # combine: F → A
+        # unpermute fused into it; one program per expert block, whose
+        # partial outputs sum on the A device (combine: F → A)
+        routed = None
+        blocks = f_shards if self.experts_sharded else f_shards[:1]
+        for j, (dev, w) in enumerate(zip(self.f_devices, blocks)):
+            part = moe_mod.expert_ffn(
+                cfg, w["wi"], w["wo"], tokens.to(dev), topw.to(dev),
+                topi.to(dev), self.impl,
+                first_expert=j * w["wi"].shape[0]).to(self.a_device)
+            routed = part if routed is None else routed + part
 
         out = x + routed.reshape(x.shape)
         if "shared" in lp["moe"]:
@@ -198,7 +218,7 @@ class AFDRuntime:
     def _ffn(self, i: int, spec: LayerSpec, x):
         lp = self.a_params["layers"][i]
         if spec.moe:
-            return self._moe_cycle(lp, self.f_layers[i], x)
+            return self._moe_cycle(lp, self.f_shards[i], x)
         return self._ffn_local(lp, spec, x)
 
     def _head(self, x):
@@ -297,19 +317,25 @@ def split_nodes(devices: Sequence, n_a_nodes: int, n_f_nodes: int,
     return list(a), list(f)
 
 
-def rescale(runtime: AFDRuntime, a_device, f_device) -> AFDRuntime:
+def rescale(runtime: AFDRuntime, a_device, f_devices: Sequence
+            ) -> AFDRuntime:
     """Rebuild the runtime on a new role split: the paper's discrete
     N_A/N_F adjustment executed live (after a re-plan, or after a failure
-    shrinks a role). The parameters are reassembled from the two roles and
-    moved to the new devices; tensors already there are shared, not
-    copied. Caches are not migrated: in-flight requests drain and requeue
-    as ``AFDServeEngine.simulate_failure`` does."""
+    shrinks a role). The parameters are reassembled from the two roles
+    (expert blocks joined) and moved to the new devices; tensors already
+    there are shared, not copied. Caches are not migrated: in-flight
+    requests drain and requeue as ``AFDServeEngine.simulate_failure``
+    does."""
     cfg = runtime.cfg
     layers = []
-    for lp, fl in zip(runtime.a_params["layers"], runtime.f_layers):
+    for lp, sh in zip(runtime.a_params["layers"], runtime.f_shards):
         lp = dict(lp)
-        if fl is not None:
-            lp["moe"] = {**lp["moe"], **fl}
+        if sh is not None:
+            blocks = sh if runtime.experts_sharded else sh[:1]
+            lp["moe"] = {**lp["moe"], **{
+                n: blocks[0][n] if len(blocks) == 1 else torch.cat(
+                    [b[n].to(blocks[0][n].device) for b in blocks])
+                for n in ("wi", "wo")}}
         layers.append(lp)
     a = runtime.a_params
     params = {"embed": a["embed"],
@@ -317,5 +343,5 @@ def rescale(runtime: AFDRuntime, a_device, f_device) -> AFDRuntime:
               # runtime makes its own from the embedding
               "lm_head": {} if cfg.tie_embeddings else a["lm_head"],
               "final_norm": a["final_norm"], "layers": layers}
-    return AFDRuntime(cfg, params, device=a_device, f_device=f_device,
+    return AFDRuntime(cfg, params, device=a_device, f_devices=f_devices,
                       impl=runtime.impl)

@@ -294,6 +294,8 @@ def test_port_imports_no_jax_and_no_repro():
         "repro_torch.serving.engine", "repro_torch.launch.serve",
         "repro_torch.launch.presets", "repro_torch.launch.train",
         "repro_torch.serving.mtp"} | {
+        f"repro_torch.parallel.{m}" for m in (
+            "afd", "sharding", "collectives", "ep")} | {
         f"repro_torch.training.{m}" for m in (
             "optimizer", "data", "train", "checkpoint")} | {
         f"repro_torch.configs.{m}" for m in (

@@ -256,10 +256,10 @@ def test_runtime_rescale(bridged, arch):
     within 1e-4 of JAX's rescaled runtime."""
     jcfg, jparams, tcfg, tparams = bridged[arch]
     rt = AFDRuntime(tcfg, tparams, device="cpu")
-    rt2 = rescale(rt, "cpu", "cpu")
+    rt2 = rescale(rt, "cpu", ["cpu"])
     assert rt2.impl == rt.impl and rt2.cfg is rt.cfg
-    moe = next(i for i, f in enumerate(rt.f_layers) if f is not None)
-    assert rt2.f_layers[moe]["wi"] is rt.f_layers[moe]["wi"]
+    moe = next(i for i, f in enumerate(rt.f_shards) if f is not None)
+    assert rt2.f_shards[moe][0]["wi"] is rt.f_shards[moe][0]["wi"]
     assert rt2.a_params["embed"]["tok"] is rt.a_params["embed"]["tok"]
     if tcfg.tie_embeddings:
         assert rt2.a_params["lm_head"]["w"] is not rt.a_params["lm_head"]["w"]

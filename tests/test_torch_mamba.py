@@ -313,9 +313,9 @@ def test_jamba_rescale_is_bit_identical(port_jamba):
     """``rescale`` onto the same device split gives bit-identical decode
     logits and shares the expert weights."""
     rt = port_jamba
-    rt2 = rescale(rt, "cpu", "cpu")
+    rt2 = rescale(rt, "cpu", ["cpu"])
     moe = next(i for i, s in enumerate(rt.specs) if s.moe)
-    assert rt2.f_layers[moe]["wi"] is rt.f_layers[moe]["wi"]
+    assert rt2.f_shards[moe][0]["wi"] is rt.f_shards[moe][0]["wi"]
     tokens = torch.tensor([7, 123], dtype=torch.int32)
     logits = []
     for r in (rt, rt2):
