@@ -160,7 +160,25 @@ Phases, each of which fails the run by raising:
    of ``moe_ffn_ref``, and both grouped-GEMM shapes timed beside their
    bytes bound and ``torch._grouped_mm``.
 
-With ``--profile`` a last phase (14) times 12 steady engine ticks (16
+14. The analysis front door (``python -m repro_torch plan | sweep | bench
+   | provision | list``, host numpy) and its calibrated leg on the card:
+   a. the stock AFD-vs-EP provisioning search (1,105,920 points) in a
+   subprocess, on the default tiles in one process and on a quarter of
+   them over 4 forked workers: the two JSON documents byte-identical
+   without ``wall_s`` and the tiling's own counts (tiles, frontier
+   evictions), DeepSeek-V3 on H800 ``stay-ep`` and on GB200
+   ``deploy-afd``; every paper model's verdict on H100 logged; b.
+   ``provision --models DeepSeek-V3,Kimi-K2 --hardware H100,H800,GB200
+   --n-f-max 40 --calibrate`` in this process, on the card: calibration
+   (granite's smoke config through the AFD engine) launches the grouped
+   GEMM and split-KV by phase 8's rule (flash and the quantized modes 0),
+   sees ``CALIB_WINDOWS`` busy windows, and every verdict carries its
+   scale as the derate; c. the same grid's verdicts for DeepSeek-V3 and
+   Kimi-K2 on H100 and H800 derated by phase 8's full-width report (both
+   scales logged); d. ``plan --json``, ``sweep --name dead-zone``,
+   ``bench`` (bit-exact) and ``list`` exit 0.
+
+With ``--profile`` a last phase (15) times 12 steady engine ticks (16
 sequences, prefill chunks interleaved with decode), traces the same ticks
 with ``torch.profiler`` and prints the device's busy share of the wall
 clock and its time by kernel; it fails unless split-KV ran one device
@@ -273,8 +291,8 @@ EP_ARGV = ["--arch", "granite-moe-1b-a400m", "--preset", "full", "--mode",
 # at full width on the first MAMBA_BF16_LAYERS layers of the same weights
 # over MAMBA_BF16_TOKENS tokens, at MAMBA_BF16_TOL: there
 # tests/test_torch_mamba.py::test_mamba2_bf16_drift_at_full_width_matches_jax
-# holds the JAX package's own bf16 gap to half this bound and the port's
-# to twice JAX's, on JAX's weights.
+# holds the port's gap to twice JAX's own on JAX's weights, and JAX's to
+# this bound (its gap spans 1.5e-2 to 4.9e-2 over root keys).
 MAMBA_F32_TOL = 1e-3
 MAMBA_BF16_LAYERS = 4
 MAMBA_BF16_TOKENS = 32
@@ -1654,10 +1672,11 @@ def path_check(torch, cfg, params) -> dict:
     return out
 
 
-def calibration(torch, cfg, params, card) -> None:
+def calibration(torch, cfg, params, card):
     """Phase 8: the port's calibration body (``provision.calibrate``) on
     the full-width model, with the JAX package's engine shape and virtual
-    clock, priced on the H800 plan as ``calibrate()`` does."""
+    clock, priced on the H800 plan as ``calibrate()`` does. Returns the
+    report (phase 14c derates verdicts by its scale)."""
     from repro_torch.api.registry import (resolve_hardware,
                                           spec_from_arch_config)
     from repro_torch.core.planner import plan_afd
@@ -1698,6 +1717,7 @@ def calibration(torch, cfg, params, card) -> None:
             != rep.t_budget_analytic * rep.b_rank_utilization):
         raise AssertionError("t_budget_effective != t_budget_analytic x "
                              "b_rank_utilization")
+    return rep
 
 
 def jamba_serve(torch, card) -> None:
@@ -3010,6 +3030,212 @@ def expert_parallel(torch, card, phase10) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the analysis front door and the calibrated provisioning leg
+# ---------------------------------------------------------------------------
+
+def front_door(args, timeout: int = 600):
+    """``python -m repro_torch ARGS`` in a fresh interpreter (the
+    provisioning search forks its worker pool, which must not inherit this
+    process's CUDA context); returns (wall s, stdout)."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [os.path.join(ROOT, "src")] + ([env["PYTHONPATH"]]
+                                       if env.get("PYTHONPATH") else []))
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "repro_torch", *args],
+                         env=env, capture_output=True, text=True,
+                         timeout=timeout)
+    wall = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise AssertionError(f"python -m repro_torch {' '.join(args)} exited "
+                             f"{res.returncode}: {res.stderr[-2000:]}")
+    return wall, res.stdout
+
+
+def _verdicts(doc) -> dict:
+    return {f"{v['model']}|{v['hardware']}": v for v in doc["verdicts"]}
+
+
+def _verdict_line(v) -> str:
+    afd = v["afd"] or {}
+    return (f"{v['model']} on {v['hardware']}: {v['decision']}, HFU margin "
+            f"{v['hfu_margin']:+.6f}, N_F {afd.get('n_f')}, N_A "
+            f"{afd.get('n_a')}, derate {v['calibration_scale']!r}")
+
+
+def stock_search(tmp) -> dict:
+    """14a: the stock million-point search through the port's command line,
+    once on the default tiles in one process and once on a quarter of them
+    over 4 forked workers. The two documents must agree byte for byte
+    without ``wall_s`` and the two counts of the tiling's own work (tiles,
+    frontier evictions); DeepSeek-V3 must stay with EP on H800 and deploy
+    AFD on GB200 (the JAX package's CI classifications)."""
+    from repro_torch.api.sweep import DEFAULT_TILE_POINTS
+    docs, walls = [], []
+    for extra in ([], ["--tile-points", str(DEFAULT_TILE_POINTS // 4),
+                       "--processes", "4"]):
+        path = os.path.join(tmp, f"stock{len(docs)}.json")
+        wall, out = front_door(["provision", "--json", path, *extra])
+        with open(path) as fh:
+            doc = json.load(fh)
+        res = doc["result"]
+        log(f"  14a provision {' '.join(extra) or '(defaults)'}: "
+            f"{res['points']:,} points, {wall:.2f} s wall ({doc['wall_s']:.2f}"
+            f" s search), {res['tiles']} tiles, eligible {res['eligible']:,},"
+            f" frontier {res['frontier_size']} (evicted "
+            f"{res['frontier_evicted']}), counters {res['counters']}")
+        docs.append(doc)
+        walls.append(wall)
+    tiling = ("tiles", "frontier_evicted")
+    a, b = (json.dumps({**d, "wall_s": None,
+                        "result": {k: v for k, v in d["result"].items()
+                                   if k not in tiling}}, sort_keys=True)
+            for d in docs)
+    if a != b:
+        raise AssertionError("the stock search's documents differ between "
+                             "tilings and worker counts")
+    if docs[0]["result"]["points"] != 1_105_920:
+        raise AssertionError("the stock grid is not 1,105,920 points")
+    verdicts = _verdicts(docs[0])
+    for key, want in (("DeepSeek-V3|H800", "stay-ep"),
+                      ("DeepSeek-V3|GB200", "deploy-afd")):
+        if verdicts[key]["decision"] != want:
+            raise AssertionError(f"{key}: {verdicts[key]['decision']} != "
+                                 f"{want}")
+        log("  14a gate: " + _verdict_line(verdicts[key]))
+    h100 = [v for k, v in verdicts.items() if k.endswith("|H100")]
+    for v in h100:
+        log("  14a on H100: " + _verdict_line(v))
+    afd = sum(v["decision"] == "deploy-afd" for v in h100)
+    log(f"  14a: {afd} of {len(h100)} paper models deploy AFD on H100")
+    return {"walls": walls, "search_s": [d["wall_s"] for d in docs],
+            "h100_deploy_afd": afd}
+
+
+CALIBRATED_ARGV = ["provision", "--models", "DeepSeek-V3,Kimi-K2",
+                   "--hardware", "H100,H800,GB200", "--n-f-max", "40",
+                   "--calibrate"]
+
+
+def calibrated_search(torch, tmp) -> dict:
+    """14b: ``python -m repro_torch provision --calibrate`` in this process
+    (it forks no pool, and its launches are counted here), on the card by
+    default: calibration on granite's smoke config launches the grouped
+    GEMM and split-KV by phase 8's rule, sees ``CALIB_WINDOWS`` busy
+    windows, and every verdict carries its scale as the derate."""
+    import io
+    from repro_torch import __main__ as cli
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import ops
+    path = os.path.join(tmp, "calibrated.json")
+    out = io.StringIO()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(CALIBRATED_ARGV + ["--json", path])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    if rc != 0:
+        raise AssertionError(f"provision --calibrate exited {rc}")
+    with open(path) as fh:
+        doc = json.load(fh)
+    cal = doc["calibration"]
+    log(f"  14b {' '.join(CALIBRATED_ARGV)}: {wall:.2f} s wall "
+        f"({doc['wall_s']:.2f} s search); launches {launches}")
+    log("  14b calibration " + json.dumps(cal))
+    for line in out.getvalue().splitlines()[:2]:
+        log("  14b " + line)
+    cfg = get_smoke_config(cal["arch"])
+    specs = cfg.layer_plan().flat()
+    attn = sum(1 for sp in specs if sp.kind == "attn")
+    moe = sum(1 for sp in specs if sp.moe)
+    steps = launches["splitkv_attention"] // attn
+    expected = {"grouped_gemm": 2 * moe * steps, "grouped_gemm_int8": 0,
+                "grouped_gemm_int4": 0, "flash_prefill": 0,
+                "splitkv_attention": attn * steps}
+    if steps <= 0 or launches != expected:
+        raise AssertionError(f"provision --calibrate launches {launches} != "
+                             f"{expected}")
+    if cal["windows"] != CALIB_WINDOWS:
+        raise AssertionError(f"calibration saw {cal['windows']} busy "
+                             f"windows, not {CALIB_WINDOWS}")
+    if not 0 < cal["scale"] <= 1:
+        raise AssertionError(f"scale {cal['scale']} outside (0, 1]")
+    for v in doc["verdicts"]:
+        if v["calibration_scale"] != cal["scale"]:
+            raise AssertionError(f"{v['model']}|{v['hardware']} derated by "
+                                 f"{v['calibration_scale']}, not "
+                                 f"{cal['scale']}")
+        log("  14b " + _verdict_line(v))
+    return {"wall": wall, "launches": launches, "scale": cal["scale"],
+            "verdicts": {k: v["decision"] for k, v in _verdicts(doc).items()}}
+
+
+def full_width_verdicts(calib) -> dict:
+    """14c: the same search's verdicts for DeepSeek-V3 and Kimi-K2 on H100
+    and H800, derated by phase 8's full-width calibration report
+    (``recommend(calibration_scale=…)``, the library call)."""
+    from repro_torch.provision import default_grid, recommend, search
+    res = search(default_grid(models=["DeepSeek-V3", "Kimi-K2"],
+                              hardware=["H100", "H800", "GB200"],
+                              n_f_max=40))
+    out = {}
+    for model in ("DeepSeek-V3", "Kimi-K2"):
+        for hw in ("H100", "H800"):
+            v = recommend(res, model, hw, calibration_scale=calib.scale)
+            if v.calibration_scale != calib.scale:
+                raise AssertionError("verdict lost its derate")
+            log("  14c " + _verdict_line(v.to_obj()))
+            out[f"{model}|{hw}"] = v.decision
+    return out
+
+
+def other_front_doors() -> dict:
+    """14d: ``plan --json``, ``sweep --name dead-zone``, ``bench`` (its
+    vectorized sweep bit-exact against the scalar loop) and ``list``, each
+    exiting 0."""
+    walls = {}
+    for args in (["plan", "--model", "DeepSeek-V3", "--hardware", "H100",
+                  "--json"], ["sweep", "--name", "dead-zone"], ["bench"],
+                 ["list"]):
+        wall, out = front_door(args, timeout=300)
+        walls[args[0]] = wall
+        if args[0] == "plan":
+            doc = json.loads(out)
+            log(f"  14d plan DeepSeek-V3 on H100: N_F {doc['plan']['n_f']}, "
+                f"N_A {doc['plan']['n_a']}, HFU {doc['plan']['hfu']:.4f}, "
+                f"AFD recommended {doc['verdict']['afd_recommended']}")
+        elif args[0] == "sweep":
+            log(f"  14d sweep dead-zone: {out.splitlines()[0]}")
+        elif args[0] == "bench":
+            if "bit_exact=True" not in out:
+                raise AssertionError("bench: sweep not bit-exact")
+            log("  14d bench: " + "; ".join(out.splitlines()[1:]))
+        log(f"  14d {args[0]}: {wall:.2f} s wall")
+    return walls
+
+
+def provisioning(torch, calib) -> dict:
+    """Phase 14: the analysis front door on the card's host, and its
+    calibrated leg on the card."""
+    import tempfile
+    t0 = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        out["stock"] = stock_search(tmp)
+        out["calibrated"] = calibrated_search(torch, tmp)
+    log(f"  14c: phase 8's full-width scale {calib.scale!r} against 14b's "
+        f"smoke-config scale {out['calibrated']['scale']!r}")
+    out["full_width"] = full_width_verdicts(calib)
+    out["front_doors"] = other_front_doors()
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"  phase 14 {out['phase_s']:.1f} s")
+    log("  provision_summary14 " + json.dumps(out, default=str))
+    return out
+
+
 def _steady_engine(cfg, params, warm_ticks: int):
     """16 requests of 256 prompt tokens arrive at once; after
     ``warm_ticks`` ticks the engine interleaves one 64-token prefill chunk
@@ -3077,7 +3303,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
                     help="trace a window of granite's engine ticks after "
-                         "phase 13")
+                         "phase 14")
     args = ap.parse_args()
 
     # phase 12's bitwise checks run cuBLAS under deterministic algorithms,
@@ -3155,7 +3381,7 @@ def main() -> int:
     fleet(torch, cfg, params, card)
     log("[8] calibration at full width: granite-moe-1b-a400m, bf16, H800 "
         "plan")
-    calibration(torch, cfg, params, card)
+    calib = calibration(torch, cfg, params, card)
     del params                  # phase 9 needs the card's memory
     log(f"[9] Jamba at full width: jamba-v0.1-52b, {JAMBA_LAYERS} of 32 "
         "layers, bf16")
@@ -3176,8 +3402,12 @@ def main() -> int:
         "ETP, EP train, split-KV, the EP-hooked serve, AFD over four F "
         "blocks, a Kimi K2 MoE layer")
     expert_parallel(torch, card, phase10)
+    log("[14] the analysis front door: the stock provisioning search, "
+        "provision --calibrate on the card, full-width verdicts, plan / "
+        "sweep / bench / list")
+    provisioning(torch, calib)
     if args.profile:
-        log("[14] profiled window of engine ticks")
+        log("[15] profiled window of engine ticks")
         torch.cuda.empty_cache()
         profile_ticks(torch, cfg, init_params(cfg, seed=0, device="cuda"))
     log(f"done in {time.perf_counter() - t_start:.1f} s")

@@ -1,5 +1,11 @@
 """Command line of the port.
 
+    python -m repro_torch plan --model DeepSeek-V3 --hardware H800 [--json]
+    python -m repro_torch sweep --name dead-zone | --models M --hardware H
+    python -m repro_torch bench [--n-f-max 24]
+    python -m repro_torch provision [--models ...] [--hardware ...] \
+        [--processes N] [--json PATH] [--calibrate [--device cuda|cpu]]
+    python -m repro_torch list [models|hardware|scenarios|sweeps|traffic|...]
     python -m repro_torch serve-traffic [--profile poisson-burst] \
         [--arch granite-moe-1b-a400m] [--device cuda|cpu] \
         [--hardware H800] [--policy ep|afd|off] ...
@@ -13,6 +19,19 @@
     python -m repro_torch train --arch granite-moe-1b-a400m \
         [--preset smoke|100m|full] [--steps 300] [--ckpt-dir D] \
         [--device cuda|cpu] ...
+
+``plan``, ``sweep``, ``bench``, ``provision`` and ``list`` are ``python -m
+repro``'s analysis subcommands with its flags, defaults, output lines and
+exit codes, on the port's copies of ``repro.api`` and ``repro.provision``
+(host numpy). They import no torch: the serving commands' ``--arch``
+choices are built only when a serving command is parsed. ``provision``
+streams the million-point AFD-vs-EP grid through the tiled sweep (worker
+processes forked with ``--processes``), keeps the Pareto frontier and
+prints a deploy verdict per (model, hardware); ``--calibrate`` derates the
+verdicts by ``repro_torch.provision.calibrate``, which runs the serving
+engine and its kernels on ``--device`` (the card unless ``--device cpu``).
+``bench`` exits 1 if the vectorized sweep diverges from the scalar loop,
+``provision`` 3 if no grid point is eligible.
 
 ``serve-traffic`` runs the two-role AFD serving engine (``AFDRuntime`` +
 ``AFDServeEngine``) on the smoke config of ``--arch`` with random weights
@@ -43,8 +62,10 @@ synthetic token stream, resuming from the newest committed checkpoint in
 
 ``serve-traffic`` and ``serve-fleet`` exit 1 if measured M2N bytes
 diverge from the Eq. 9/17 prediction (``serve-fleet`` also if a request
-is lost), and 2 on a bad argument (an unknown hardware or router name,
-``--policy afd`` without a plan, a ``--fail`` target outside the fleet).
+is lost). Every command exits 2 on a bad argument (an unknown model,
+hardware, scenario, sweep or router name prints ``error: unknown …
+known: […]``; ``--policy afd`` without a plan, a ``--fail`` target outside
+the fleet).
 """
 
 from __future__ import annotations
@@ -55,6 +76,310 @@ import json
 import sys
 import time
 from typing import List, Optional
+
+import numpy as np
+
+
+def _split(arg: Optional[str]) -> Optional[List[str]]:
+    if arg is None:
+        return None
+    return [a.strip() for a in arg.split(",") if a.strip()]
+
+
+def _floats(arg: Optional[str]):
+    vals = _split(arg)
+    return None if vals is None else [float(v) for v in vals]
+
+
+def cmd_list(args) -> int:
+    from repro_torch.api import registry
+    kind = args.kind
+    if kind in ("models", "all"):
+        print("models:")
+        for m in registry.list_models():
+            spec = registry.resolve_model(m)
+            tag = ("MoE" if spec.is_moe else "dense")
+            print(f"  {m:22s} {tag:5s} H={spec.hidden_size:5d} "
+                  f"M={spec.moe_intermediate:5d} E={spec.n_routed_experts:3d} "
+                  f"k={spec.top_k}")
+    if kind in ("hardware", "all"):
+        print("hardware:")
+        for h in registry.list_hardware():
+            hw = registry.resolve_hardware(h)
+            pod = " superpod" if hw.superpod else ""
+            print(f"  {h:8s} peak={hw.peak_flops/1e12:6.0f}T "
+                  f"hbm={hw.hbm_bw/1e12:.2f}TB/s cap={hw.hbm_cap/1e9:.0f}GB "
+                  f"${hw.cost_per_device_hour:.1f}/chip-h{pod}")
+    if kind in ("scenarios", "all"):
+        print("scenarios:")
+        for s, scen in sorted(registry.SCENARIOS.items()):
+            print(f"  {s:12s} slo={scen.slo_tpot*1e3:.0f}ms "
+                  f"l_accept={scen.l_accept} t_gap={scen.t_gap*1e3:.0f}ms "
+                  f"n_bo={scen.n_bo}")
+    if kind in ("sweeps", "all"):
+        print("sweeps:")
+        for s in registry.list_sweeps():
+            params = registry.named_sweep(s)
+            print(f"  {s:12s} models={len(params['models'])} "
+                  f"hardware={len(params['hardware'])}")
+    if kind in ("traffic", "all"):
+        from repro_torch.serving import workload
+        print("traffic profiles:")
+        for name in workload.list_profiles():
+            prof = workload.get_profile(name)
+            print(f"  {name:14s} {prof.total_duration:4.1f}s "
+                  f"~{prof.expected_requests:5.0f} req  "
+                  f"{prof.description}")
+    if kind in ("routers", "all"):
+        from repro_torch.fleet.router import ROUTER_POLICIES
+        print("fleet router policies:")
+        for name in sorted(ROUTER_POLICIES):
+            doc = (ROUTER_POLICIES[name].__doc__ or "").split("\n")[0]
+            print(f"  {name:14s} {doc}")
+    return 0
+
+
+def cmd_plan(args) -> int:
+    from repro_torch.api import Deployment
+    from repro_torch.core.planner import PlanningError
+    dep = Deployment(args.model, args.hardware, args.scenario,
+                     bw_scale=args.bw_scale)
+    try:
+        if args.sigma is not None:
+            rec = dep.rescale(args.sigma, n_f=args.n_f)
+        else:
+            rec = dep.plan(n_f=args.n_f)
+    except PlanningError as e:
+        print(f"planning failed: {e}", file=sys.stderr)
+        return 2
+    verdict = dep.verdict()
+    if args.json:
+        print(json.dumps({"plan": dict(rec), "verdict": dict(verdict)},
+                         indent=2, sort_keys=True))
+        return 0
+    plan = rec.get("plan", rec)
+    print(f"{dep!r}")
+    print(f"  N_F={plan['n_f']}  N_A={plan['n_a']}  "
+          f"λ={plan['lambda_afd']:.2f}  total={plan['total_nodes']} nodes")
+    print(f"  t_B={plan['t_budget']*1e3:.3f} ms  B_rank={plan['b_rank']:.0f} "
+          f"tok  HFU={plan['hfu']:.1%}  S_t={plan['temporal_sparsity']:.3f}")
+    print(f"  regime={plan['regime']}  bottleneck={plan['bottleneck']}  "
+          f"bubble_free={plan['bubble_free']}  slo_ok={plan['slo_ok']}")
+    if args.sigma is not None:
+        print(f"  σ={rec['sigma']}: N_A {rec['old_n_a']} → {rec['new_n_a']} "
+              f"({rec['rounding']}), α={rec['alpha']:.4f} "
+              f"vs EP {rec['alpha_ep_reference']:.4f}")
+    mark = "✓" if verdict["afd_recommended"] else "✗"
+    print(f"  AFD recommended: {mark} "
+          f"(ceiling {verdict['afd_hfu_ceiling']:.1%} vs "
+          f"{verdict['ep_reference_hfu']:.0%} large-EP reference)")
+    return 0
+
+
+def cmd_sweep(args) -> int:
+    from repro_torch.api import run_named_sweep, sweep
+    from repro_torch.core.budget import weight_bytes_per_param
+    wb = weight_bytes_per_param(args.weight_dtype)
+    t0 = time.perf_counter()
+    if args.name:
+        overrides = {}
+        if args.n_f_max:
+            overrides["n_f"] = range(1, args.n_f_max + 1)
+        if args.scenario != "default":
+            overrides["scenarios"] = args.scenario
+        if wb != 1.0:
+            overrides["weight_bytes"] = wb
+        res = run_named_sweep(args.name, **overrides)
+    else:
+        models = _split(args.models)
+        hardware = _split(args.hardware)
+        if not models or not hardware:
+            print("sweep needs --name or both --models and --hardware",
+                  file=sys.stderr)
+            return 2
+        res = sweep(models, hardware,
+                    n_f=range(1, args.n_f_max + 1) if args.n_f_max else None,
+                    scenarios=args.scenario,
+                    bw_scale=_floats(args.bw_scale) or 1.0,
+                    b_cap=_floats(args.b_cap),
+                    weight_bytes=wb)
+    dt = time.perf_counter() - t0
+    if args.json:
+        res.to_json(args.json)
+    ceilings = res.ceilings(feasible_only=not args.infeasible)
+    print(f"# {res.size} grid points in {dt*1e3:.1f} ms"
+          + (f", expert weights {args.weight_dtype} ({wb:g} B/param)"
+             if wb != 1.0 else "")
+          + (f" → {args.json}" if args.json else ""))
+    extra = [k for k in ("bw_scale", "b_cap")
+             if ceilings and k in ceilings[0]]
+    print("model,hardware,scenario," + "".join(f"{k}," for k in extra)
+          + "n_f,hfu,regime,bottleneck,feasible")
+    for r in ceilings:
+        cols = "".join(f"{r[k]:g}," for k in extra)
+        print(f"{r['model']},{r['hardware']},{r['scenario']},{cols}"
+              f"{r['n_f']},{r['hfu']:.4f},{r['regime']},{r['bottleneck']},"
+              f"{r['feasible']}")
+    return 0
+
+
+def cmd_bench(args) -> int:
+    from repro_torch.api import scalar_reference, sweep
+    from repro_torch.core.modelspec import PAPER_MODELS
+    models = list(PAPER_MODELS)
+    hardware = ["H20", "H100", "H200", "H800", "B200", "B300", "GB200",
+                "GB300"]
+    n_f = range(1, args.n_f_max + 1)
+    grid = len(models) * len(hardware) * args.n_f_max
+
+    t0 = time.perf_counter()
+    vec = sweep(models, hardware, n_f=n_f)
+    t_vec = time.perf_counter() - t0
+    for _ in range(args.repeat - 1):           # warm best-of for stability
+        t0 = time.perf_counter()
+        vec = sweep(models, hardware, n_f=n_f)
+        t_vec = min(t_vec, time.perf_counter() - t0)
+
+    t0 = time.perf_counter()
+    ref = scalar_reference(models, hardware, n_f=n_f)
+    t_ref = time.perf_counter() - t0
+
+    exact = all(
+        bool(np.all((vec.fields[f] == ref.fields[f])
+                    | (_nan_mask(vec.fields[f]) & _nan_mask(ref.fields[f]))))
+        for f in vec.fields)
+    speedup = t_ref / t_vec
+    print("name,us_per_call,derived")
+    print(f"api_sweep_vectorized,{t_vec*1e6:.0f},points={vec.size}")
+    print(f"api_sweep_scalar_loop,{t_ref*1e6:.0f},points={ref.size}")
+    print(f"api_sweep_equivalence,0,bit_exact={exact};points={vec.size}")
+    print(f"api_sweep_speedup,0,speedup={speedup:.1f}")
+    if not exact:
+        print("FAIL: vectorized sweep diverged from the scalar reference",
+              file=sys.stderr)
+        return 1
+    if grid < 1000:
+        print(f"note: grid {grid} < 1000 points; raise --n-f-max",
+              file=sys.stderr)
+    return 0
+
+
+def _nan_mask(a: np.ndarray) -> np.ndarray:
+    return (a != a) if a.dtype.kind == "f" else np.zeros(a.shape, bool)
+
+
+def _parse_costs(specs: Optional[List[str]]) -> dict:
+    """Parse repeated ``--cost HW=PRICE`` into {name: $/chip-hour}."""
+    out = {}
+    for spec in specs or []:
+        name, sep, price = spec.partition("=")
+        if not sep:
+            raise ValueError(f"bad --cost {spec!r}; want HW=PRICE, "
+                             "e.g. --cost H800=2.4")
+        out[name.strip()] = float(price)
+    return out
+
+
+def _parse_targets(specs: Optional[List[str]], grid, scenario: str):
+    """Parse ``--target MODEL:HW[:SCENARIO]`` triples (default: every
+    model × hardware pair in the grid at the verdict scenario)."""
+    if specs:
+        triples = []
+        for spec in specs:
+            parts = spec.split(":")
+            if len(parts) not in (2, 3):
+                raise ValueError(f"bad --target {spec!r}; "
+                                 "want MODEL:HW[:SCENARIO]")
+            triples.append((parts[0], parts[1],
+                            parts[2] if len(parts) == 3 else scenario))
+        return triples
+    return [(m.name, h.name, scenario)
+            for m in grid.spec.models if m.is_moe
+            for h in grid.spec.hardware]
+
+
+def cmd_provision(args) -> int:
+    from repro_torch.api.sweep import DEFAULT_TILE_POINTS
+    from repro_torch.core.budget import weight_bytes_per_param
+    from repro_torch.provision import default_grid, recommend, search
+
+    kwargs = dict(cost_overrides=_parse_costs(args.cost),
+                  sigma=args.sigma, ep_lambda=args.lambda_ep,
+                  n_f_max=args.n_f_max,
+                  weight_bytes=weight_bytes_per_param(args.weight_dtype))
+    if args.models:
+        kwargs["models"] = _split(args.models)
+    if args.hardware:
+        kwargs["hardware"] = _split(args.hardware)
+    if args.scenarios:
+        kwargs["scenarios"] = _split(args.scenarios)
+    if args.bw_scale:
+        kwargs["bw_scale"] = _floats(args.bw_scale)
+    if args.b_cap:
+        kwargs["b_cap"] = _floats(args.b_cap)
+    if args.n_a_slack:
+        kwargs["n_a_slack"] = [int(s) for s in _split(args.n_a_slack)]
+    grid = default_grid(**kwargs)
+
+    t0 = time.perf_counter()
+    res = search(grid, tile_points=args.tile_points or DEFAULT_TILE_POINTS,
+                 processes=args.processes)
+    wall = time.perf_counter() - t0
+
+    calibration = None
+    scale = 1.0
+    if args.calibrate:
+        from repro_torch.provision.calibrate import calibrate
+        rep = calibrate(device=args.device)
+        calibration = rep.to_obj()
+        scale = rep.scale
+
+    scen_names = grid.spec.scenario_names
+    verdict_scen = (args.scenario if args.scenario in scen_names
+                    else scen_names[0])
+    targets = _parse_targets(args.target, grid, verdict_scen)
+    verdicts = [recommend(res, m, h, s, calibration_scale=scale)
+                for m, h, s in targets]
+
+    doc = {"grid": {"points": grid.points, "shape": list(grid.spec.shape),
+                    "n_a_slack": list(grid.n_a_slack),
+                    "sigma": grid.sigma, "ep_lambda": grid.ep_lambda,
+                    "cost_overrides": dict(grid.cost_overrides),
+                    "weight_bytes": grid.spec.weight_bytes},
+           "result": res.to_obj(),
+           "verdicts": [v.to_obj() for v in verdicts],
+           "calibration": calibration,
+           "wall_s": wall}
+    _write_json(doc, args.json)
+    if args.json != "-":
+        print(f"# provision: {grid.points} points "
+              f"({'x'.join(str(d) for d in grid.spec.shape)} grid "
+              f"x {len(grid.n_a_slack)} slack) in {wall:.1f}s, "
+              f"{res.tiles} tiles")
+        print(f"# eligible={res.eligible} frontier={len(res.frontier)} "
+              f"counters={res.counters}")
+        if calibration:
+            print(f"# calibration: measured/predicted HFU scale "
+                  f"{scale:.4f} over {calibration['windows']} windows")
+        print("# Pareto frontier (top rows by HFU_eff):")
+        print("model,hardware,scenario,bw_scale,b_cap,n_f,n_a,"
+              "hfu_eff,slack,cost_per_mtok")
+        for row in res.frontier[:args.top]:
+            cap = "inf" if row["b_cap"] is None else f"{row['b_cap']:g}"
+            print(f"{row['model']},{row['hardware']},{row['scenario']},"
+                  f"{row['bw_scale']:g},{cap},{row['n_f']},{row['n_a']},"
+                  f"{row['hfu_eff']:.4f},{row['slack_frac']:.4f},"
+                  f"{row['cost_per_mtok']:.4f}")
+        print("# verdicts:")
+        for v in verdicts:
+            mark = "✓ AFD" if v.decision == "deploy-afd" else "✗ EP "
+            print(f"  {mark} {v.summary}")
+    if not res.frontier:
+        print("FAIL: no eligible AFD point in the entire grid — the SLO "
+              "is infeasible at every searched configuration",
+              file=sys.stderr)
+        return 3
+    return 0
 
 
 def cmd_serve_traffic(args) -> int:
@@ -313,15 +638,119 @@ def _write_json(doc, path: Optional[str]) -> None:
             fh.write(payload + "\n")
 
 
-def build_parser() -> argparse.ArgumentParser:
+def build_parser(arch_choices: bool = True) -> argparse.ArgumentParser:
+    """The command line's parser. ``arch_choices=False`` leaves the serving
+    commands' ``--arch`` without its list of MoE configs, whose building
+    imports ``repro_torch.configs`` and with it torch: ``main`` builds the
+    list only for ``serve-traffic`` and ``serve-fleet``, so the analysis
+    commands start without torch."""
     from repro_torch.api.registry import list_routers
-    from repro_torch.configs import ARCH_IDS, get_smoke_config
     from repro_torch.serving.workload import list_profiles
 
-    # the AFD engines serve the archs with routed experts
-    moe_archs = [a for a in ARCH_IDS if get_smoke_config(a).is_moe]
-    p = argparse.ArgumentParser(prog="python -m repro_torch")
+    moe_archs = None
+    if arch_choices:
+        from repro_torch.configs import ARCH_IDS, get_smoke_config
+        # the AFD engines serve the archs with routed experts
+        moe_archs = [a for a in ARCH_IDS if get_smoke_config(a).is_moe]
+    p = argparse.ArgumentParser(
+        prog="python -m repro_torch",
+        description="The port's front door: AFD analysis (paper §2–§4) and "
+                    "the PyTorch/CUDA serving and training paths.")
     sub = p.add_subparsers(dest="cmd", required=True)
+
+    pl = sub.add_parser("plan", help="§4 planner for one deployment triple")
+    pl.add_argument("--model", required=True)
+    pl.add_argument("--hardware", required=True)
+    pl.add_argument("--scenario", default="default")
+    pl.add_argument("--n-f", type=int, default=None,
+                    help="force the FFN node count instead of optimizing")
+    pl.add_argument("--sigma", type=float, default=None,
+                    help="apply the §3.3 elastic rescale under imbalance σ")
+    pl.add_argument("--bw-scale", type=float, default=1.0)
+    pl.add_argument("--json", action="store_true")
+    pl.set_defaults(fn=cmd_plan)
+
+    sw = sub.add_parser("sweep", help="vectorized §3 grid evaluation")
+    sw.add_argument("--name", default=None,
+                    help="named sweep (see: python -m repro_torch list "
+                         "sweeps)")
+    sw.add_argument("--models", default=None, help="comma-separated")
+    sw.add_argument("--hardware", default=None, help="comma-separated")
+    sw.add_argument("--scenario", default="default")
+    sw.add_argument("--n-f-max", type=int, default=None)
+    sw.add_argument("--bw-scale", default=None,
+                    help="comma-separated interconnect scale factors")
+    sw.add_argument("--b-cap", default=None,
+                    help="comma-separated per-rank token inflow caps")
+    sw.add_argument("--infeasible", action="store_true",
+                    help="include HBM-infeasible points in ceilings")
+    sw.add_argument("--weight-dtype", default="fp8",
+                    choices=["f32", "bf16", "f16", "fp8", "int8", "int4"],
+                    help="expert-weight storage width for the Eq. 6 Mem "
+                         "term (int4 halves bytes vs fp8 and shifts the "
+                         "dead-zone boundary)")
+    sw.add_argument("--json", default=None, metavar="PATH",
+                    help="write the full record grid as JSON")
+    sw.set_defaults(fn=cmd_sweep)
+
+    be = sub.add_parser("bench",
+                        help="scalar vs vectorized equivalence + speedup")
+    be.add_argument("--n-f-max", type=int, default=24,
+                    help="grid is 6 models × 8 platforms × n_f_max points")
+    be.add_argument("--repeat", type=int, default=3)
+    be.set_defaults(fn=cmd_bench)
+
+    pv = sub.add_parser(
+        "provision",
+        help="million-point AFD-vs-EP search with Pareto frontier + verdict")
+    pv.add_argument("--models", default=None,
+                    help="comma-separated (default: all paper models)")
+    pv.add_argument("--hardware", default=None,
+                    help="comma-separated (default: every registry platform)")
+    pv.add_argument("--scenarios", default=None,
+                    help="comma-separated (default: all named scenarios)")
+    pv.add_argument("--scenario", default="default",
+                    help="scenario the deploy verdicts are stated for")
+    pv.add_argument("--n-f-max", type=int, default=96,
+                    help="FFN-node axis sweeps 1..N_F_MAX")
+    pv.add_argument("--bw-scale", default=None,
+                    help="comma-separated interconnect scale factors")
+    pv.add_argument("--b-cap", default=None,
+                    help="comma-separated per-rank token inflow caps")
+    pv.add_argument("--n-a-slack", default=None,
+                    help="comma-separated extra attention nodes (default 0,1)")
+    pv.add_argument("--sigma", type=float, default=0.8,
+                    help="§3.3 balancedness for the imbalance penalties")
+    pv.add_argument("--lambda-ep", type=float, default=3.0,
+                    help="t_a/t_f assumed for the large-EP reference")
+    pv.add_argument("--tile-points", type=int, default=None,
+                    help="max grid cells evaluated per tile")
+    pv.add_argument("--processes", type=int, default=None,
+                    help="shard tiles across worker processes (fork)")
+    pv.add_argument("--cost", action="append", metavar="HW=PRICE",
+                    help="override $/chip-hour (repeatable), "
+                         "e.g. --cost H800=2.4 --cost GB200=9")
+    pv.add_argument("--target", action="append",
+                    metavar="MODEL:HW[:SCENARIO]",
+                    help="emit a deploy verdict for this triple "
+                         "(repeatable; default: every model x hardware)")
+    pv.add_argument("--top", type=int, default=10,
+                    help="frontier rows printed to stdout")
+    pv.add_argument("--weight-dtype", default="fp8",
+                    choices=["f32", "bf16", "f16", "fp8", "int8", "int4"],
+                    help="expert-weight storage width priced into the "
+                         "Eq. 6 Mem term and the HBM feasibility test")
+    pv.add_argument("--calibrate", action="store_true",
+                    help="derate verdicts by the measured/predicted HFU "
+                         "scale from the serving engine on --device")
+    pv.add_argument("--device", default="cuda",
+                    help="torch device of the --calibrate run (default "
+                         "cuda; cpu for the plain PyTorch path); read only "
+                         "with --calibrate")
+    pv.add_argument("--json", default=None, metavar="PATH",
+                    help="write the full search result JSON ('-' for stdout)")
+    pv.set_defaults(fn=cmd_provision)
+
     st = sub.add_parser("serve-traffic",
                         help="two-role AFD serving engine under a "
                              "stochastic trace")
@@ -417,6 +846,12 @@ def build_parser() -> argparse.ArgumentParser:
     sub.add_parser("train", add_help=False,
                    help="the training driver (python -m repro_torch train "
                         "--help for its flags)")
+
+    ls = sub.add_parser("list", help="registry contents")
+    ls.add_argument("kind", nargs="?", default="all",
+                    choices=["all", "models", "hardware", "scenarios",
+                             "sweeps", "traffic", "routers"])
+    ls.set_defaults(fn=cmd_list)
     return p
 
 
@@ -429,7 +864,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         if argv[:1] == ["train"]:
             from repro_torch.launch import train
             return train.main(argv[1:])
-        args = build_parser().parse_args(argv)
+        args = build_parser(arch_choices=argv[:1] in (
+            ["serve-traffic"], ["serve-fleet"])).parse_args(argv)
         return args.fn(args)
     except (KeyError, ValueError) as e:
         # Registry lookups and parameter checks raise with the known names

@@ -1,19 +1,34 @@
-"""Name → spec resolution for the port's entry point: the part of
-``repro.api.registry`` that ``serve-traffic`` and ``serve-fleet`` need
-(hardware, scenario and router lookup, and the analysis view of an
-executable config), kept as a copy so the port imports nothing of
-``repro``. Models by name and named sweeps wait for the sweep slice.
+"""Name → spec resolution for the port's front door: a copy of
+``repro.api.registry`` (the port imports nothing of ``repro``).
+
+One registry over these namespaces, all addressable by plain strings:
+
+  * **models** — the paper's Table 4 models and the repo's assigned
+    architectures (``repro_torch.core.modelspec.ALL_MODELS``), plus any
+    ``repro_torch.configs`` architecture, lowered to its analysis view
+    (``MoEModelSpec``) on the fly; ``repro_torch.configs`` (and with it
+    torch) is imported only when a name is not a Table 4 model;
+  * **hardware** — Table 5 platforms + TPU targets
+    (``repro_torch.core.hardware.HARDWARE``), with an interconnect scale;
+  * **scenarios** — named deployment scenarios (SLO/MTP/gap presets);
+  * **fleet routers** — ``repro_torch.fleet.router``'s policies.
+
+Plus **named sweeps**: the paper's recurring grids (Fig. 4, the dead zone,
+the Appendix-A superpod study, link bandwidth) as parameter sets for
+``repro_torch.api.sweep``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import difflib
 from typing import Dict, Iterable, List, Union
 
 from repro_torch.core.budget import Scenario
 from repro_torch.core.hardware import HARDWARE, HardwareSpec
-from repro_torch.core.modelspec import MoEModelSpec
+from repro_torch.core.modelspec import ALL_MODELS, PAPER_MODELS, MoEModelSpec
 
+ModelLike = Union[str, MoEModelSpec]
 HardwareLike = Union[str, HardwareSpec]
 ScenarioLike = Union[str, Scenario]
 
@@ -54,6 +69,18 @@ def resolve_scenario(scen: ScenarioLike) -> Scenario:
         raise unknown_name_error("scenario", scen, SCENARIOS) from None
 
 
+def scenario_name(scen: ScenarioLike) -> str:
+    if isinstance(scen, str):
+        return scen
+    for name, s in SCENARIOS.items():
+        if s == scen:
+            return name
+    # Unregistered Scenario: derive a deterministic parameter label so
+    # records from multi-custom-scenario sweeps stay distinguishable.
+    return (f"slo{scen.slo_tpot * 1e3:g}ms-la{scen.l_accept:g}"
+            f"-gap{scen.t_gap * 1e3:g}ms-bo{scen.n_bo}")
+
+
 # --- models ----------------------------------------------------------------
 
 def spec_from_arch_config(cfg) -> MoEModelSpec:
@@ -77,14 +104,50 @@ def spec_from_arch_config(cfg) -> MoEModelSpec:
     )
 
 
+def resolve_model(model: ModelLike) -> MoEModelSpec:
+    if isinstance(model, MoEModelSpec):
+        return model
+    if model in ALL_MODELS:
+        return ALL_MODELS[model]
+    # Any repro_torch.configs architecture id or module name.
+    try:
+        from repro_torch import configs
+        cfg = configs.get_config(model)
+    except Exception:
+        names = set(ALL_MODELS)
+        try:
+            from repro_torch import configs
+            names |= set(configs.ARCH_IDS)
+        except Exception:
+            pass
+        err = unknown_name_error("model", model, names)
+        # the JAX package's message, word for word (the CLIs print it)
+        raise KeyError(err.args[0] +
+                       " (any repro.configs arch id also resolves)") from None
+    return spec_from_arch_config(cfg)
+
+
+def list_models() -> List[str]:
+    return sorted(ALL_MODELS)
+
+
 # --- hardware --------------------------------------------------------------
 
-def resolve_hardware(hw: HardwareLike) -> HardwareSpec:
+def resolve_hardware(hw: HardwareLike,
+                     bw_scale: float = 1.0) -> HardwareSpec:
+    """Resolve a platform; ``bw_scale`` scales both interconnect tiers."""
     if isinstance(hw, str):
         try:
-            return HARDWARE[hw]
+            hw = HARDWARE[hw]
         except KeyError:
             raise unknown_name_error("hardware", hw, HARDWARE) from None
+    if bw_scale != 1.0:
+        hw = dataclasses.replace(
+            hw,
+            name=f"{hw.name}@bw{bw_scale:g}",
+            scale_up_bw=hw.scale_up_bw * bw_scale,
+            scale_out_bw=(None if hw.scale_out_bw is None
+                          else hw.scale_out_bw * bw_scale))
     return hw
 
 
@@ -107,3 +170,38 @@ def resolve_router(name: str):
 def list_routers() -> List[str]:
     from repro_torch.fleet.router import list_policies
     return list_policies()
+
+
+# --- named sweeps ----------------------------------------------------------
+
+# Platform order of the paper's Fig. 4 table.
+FIG4_PLATFORMS = ["H20", "H100", "H200", "H800", "B200", "B300",
+                  "GB200", "GB300"]
+
+NAMED_SWEEPS: Dict[str, dict] = {
+    # Fig. 4: every paper model on every Table-5 platform.
+    "fig4": dict(models=list(PAPER_MODELS), hardware=FIG4_PLATFORMS),
+    # The core finding: DeepSeek-V3-class models plateau below the large-EP
+    # reference on scale-out clusters; superpods escape the dead zone.
+    "dead-zone": dict(models=["DeepSeek-V3"],
+                      hardware=["H20", "H800", "GB200"],
+                      n_f=range(1, 41)),
+    # Appendix A: superpod closed form — HFU depends only on M there.
+    "superpod": dict(models=list(PAPER_MODELS),
+                     hardware=["GB200", "GB300"]),
+    # Interconnect sensitivity: the fig4 grid under derated/upgraded links.
+    "bandwidth": dict(models=["DeepSeek-V3", "Kimi-K2"],
+                      hardware=["H800", "B200"],
+                      bw_scale=(0.5, 0.75, 1.0, 1.5, 2.0)),
+}
+
+
+def named_sweep(name: str) -> dict:
+    try:
+        return dict(NAMED_SWEEPS[name])
+    except KeyError:
+        raise unknown_name_error("sweep", name, NAMED_SWEEPS) from None
+
+
+def list_sweeps() -> List[str]:
+    return sorted(NAMED_SWEEPS)

@@ -85,11 +85,11 @@ class LeastKVRouter(RouterPolicy):
 
 
 class PredictedTTFTRouter(RouterPolicy):
-    """Smallest predicted TTFT under the engines' virtual-clock cost model:
-    legacy prefill costs one tick per prompt token (queued prompts go
-    first), chunked prefill ``ceil(tokens / chunk)`` ticks (the admitted
-    backlog goes first too), and each request beyond the slot count waits
-    one full generation."""
+    """Smallest predicted TTFT under the engines' virtual-clock cost
+    model: legacy prefill costs one tick per prompt token (queued prompts
+    go first), chunked prefill ``ceil(tokens / chunk)`` ticks (the
+    admitted backlog goes first too), and each request beyond the slot
+    count waits one full generation."""
 
     name = "predicted-ttft"
 

@@ -298,6 +298,10 @@ def test_port_imports_no_jax_and_no_repro():
             "afd", "sharding", "collectives", "ep")} | {
         f"repro_torch.training.{m}" for m in (
             "optimizer", "data", "train", "checkpoint")} | {
+        f"repro_torch.api.{m}" for m in (
+            "records", "sweep", "deployment")} | {
+        f"repro_torch.provision.{m}" for m in (
+            "pricing", "pareto", "search", "recommend")} | {
         f"repro_torch.configs.{m}" for m in (
             "qwen1_5_0_5b", "qwen3_8b", "granite_8b", "h2o_danube_1_8b",
             "internvl2_2b", "whisper_small", "mamba2_2_7b")} <= imported

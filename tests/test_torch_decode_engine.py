@@ -4,13 +4,19 @@ layout, forward, loss, prefill and decode steps with their caches) on
 JAX's own weights for every smoke config; ``DecodeEngine`` token streams
 and counters (greedy, sampled, after a failure drain); and ``python -m
 repro_torch serve`` against ``python -m repro.launch.serve``. float32;
-whole-model logits within atol 1e-4, as the AFD tests hold them."""
+whole-model logits within atol 1e-4, as the AFD tests hold them. JAX's
+weights are drawn with each name's init key pinned by CRC-32 (the JAX
+package keys by Python's salted ``hash``), so every process and xdist
+worker sees the same weights."""
 
+import contextlib
 import dataclasses
 import os
 import re
 import subprocess
 import sys
+import zlib
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -37,6 +43,20 @@ from repro_torch.serving.engine import DecodeEngine, Request  # noqa: E402
 
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 ATOL = 1e-4
+# jamba's Mamba-2 SSM states reach |x| of 10-27 after the three decode
+# steps; there the port and JAX each lie up to ~1.3e-4 from a float64 run
+# of the same recurrence (eight root keys), so float32 rounding alone can
+# exceed ATOL: these leaves are held to rtol 1e-5 beside atol 1e-4
+SSM_STATE_RTOL = 1e-5
+
+
+@contextlib.contextmanager
+def stable_jax_keys():
+    """JAX's per-name init keys from the name's CRC-32 (not ``hash``)."""
+    def key_for(root, name):
+        return jax.random.fold_in(root, zlib.crc32(name.encode()) % (1 << 31))
+    with mock.patch.object(jcommon, "_key_for", key_for):
+        yield
 
 
 def _numpy_tree(tree):
@@ -49,8 +69,8 @@ def _np(x):
     return np.asarray(x, np.float32)
 
 
-def _close(got, want, atol=ATOL):
-    np.testing.assert_allclose(_np(got), _np(want), atol=atol)
+def _close(got, want, atol=ATOL, rtol=1e-7):
+    np.testing.assert_allclose(_np(got), _np(want), atol=atol, rtol=rtol)
 
 
 def _paths(tree, prefix=""):
@@ -142,7 +162,8 @@ def _check_cache(tcfg, tc, jc):
     for got, want in zip(tc["layers"], layers):
         assert sorted(got) == sorted(want)
         for name in got:
-            _close(got[name], want[name])
+            _close(got[name], want[name],
+                   rtol=SSM_STATE_RTOL if name == "state" else 1e-7)
     assert np.array_equal(tc["pos"].numpy(), np.asarray(jc["pos"]))
     assert tc["pos"].dtype == torch.int32
     if "cross_kv" in jc:
@@ -166,7 +187,8 @@ def test_model_matches_jax(arch):
     jcfg, tcfg = jconfigs.get_smoke_config(arch), \
         tconfigs.get_smoke_config(arch)
     jm, tm = jmake_model(jcfg), make_model(tcfg, device="cpu")
-    jp = jm.init(jax.random.PRNGKey(0))
+    with stable_jax_keys():
+        jp = jm.init(jax.random.PRNGKey(0))
     tp = params_from_jax(tcfg, _numpy_tree(jp), "cpu")
     assert _paths(tm.init(1)) == _paths(tp)
     assert tcommon.tree_count(tp) == jcommon.tree_count(jp)
@@ -229,7 +251,8 @@ def engine_setups():
         jcfg, tcfg = jconfigs.get_smoke_config(arch), \
             tconfigs.get_smoke_config(arch)
         jm = jmake_model(jcfg)
-        jp = jm.init(jax.random.PRNGKey(0))
+        with stable_jax_keys():
+            jp = jm.init(jax.random.PRNGKey(0))
         out[arch] = (jm, jp, make_model(tcfg, device="cpu"),
                      params_from_jax(tcfg, _numpy_tree(jp), "cpu"))
     return out
