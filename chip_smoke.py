@@ -35,8 +35,16 @@ Phases, each of which fails the run by raising:
    and library calls; and split-KV at each phase 10-11 path's own batch,
    cache length and heads (``MODEL_SPLITKV``), at every length the path
    reaches and each split boundary, in both dtypes, with its bf16 time,
-   bound, plain and SDPA times. The build fails the run if a split-KV variant or a
-   bf16 flash-prefill variant spills registers (``-Xptxas -v``).
+   bound, plain and SDPA times. Then the kernels at phase 15's Kimi K2
+   blocks (split-KV at device 0's A block: 4 sequences, 4 query heads of
+   one KV head, d 112, T 32768, every slot live; the grouped GEMM's block
+   mode at its F block: 48 tokens x top-8, experts 0-5 of 384, dense and
+   int8) against their plain versions in bf16 and f32, timed beside their
+   bounds, plain versions and library calls; and a hash of each kernel's
+   bf16 output on fixed seeded inputs (logged, not gated: a card that
+   gives other bits points to a kernel). The build fails the run if a
+   split-KV variant or a bf16 flash-prefill variant spills registers
+   (``-Xptxas -v``).
 4. Full-width serve: granite-moe-1b-a400m (24 layers, bf16, random weights
    from seed 0) through ``AFDRuntime`` + ``AFDServeEngine`` on a 24-request
    seeded trace with chunked prefill, on the wall clock, with no policy
@@ -178,7 +186,24 @@ Phases, each of which fails the run by raising:
    scales logged); d. ``plan --json``, ``sweep --name dead-zone``,
    ``bench`` (bit-exact) and ``list`` exit 0.
 
-With ``--profile`` a last phase (15) times 12 steady engine ticks (16
+15. The AFD dry-run (``repro_torch.launch.afd_dryrun``): a. its command
+   line, ``--arch kimi-k2-1t-a32b`` in this process, priced on TPU v5e
+   and on the H100, dense and ``--int8``:
+   the fields the specs fix must be exact (``AFD_EXACT``), each role's
+   FLOPs, bytes and link bytes logged beside JAX's (``AFD_JAX``); b.
+   ``measure_afd`` on the card at Kimi K2's defaults and at N_F 4 and 16
+   (A the rest of 32 nodes), then int8, the counts reset before each call
+   and read after: split-KV once per A call, the grouped GEMM (dense or
+   int8) twice per F call and nothing else, each block's output within
+   ``PATH_REL_TOL`` of its plain versions, the int8 F block's weights half
+   the dense block's plus the scales; each role's wall per call and
+   device time per call (a ``torch.profiler`` trace, with its largest
+   kernels) beside its priced time, and the period, utilisations and FFN
+   HFU from either pair of times, logged; c.
+   granite's 4A + 4F cell measured on the card and on the CPU: the exact
+   fields equal, the outputs within ``PATH_REL_TOL``.
+
+With ``--profile`` a last phase (16) times 12 steady engine ticks (16
 sequences, prefill chunks interleaved with decode), traces the same ticks
 with ``torch.profiler`` and prints the device's busy share of the wall
 clock and its time by kernel; it fails unless split-KV ran one device
@@ -230,7 +255,8 @@ REPLACES = {
     "splitkv_attention": "src/repro/kernels/splitkv_attention.py:79",
 }
 SOURCES = {"grouped_gemm_int8": "grouped_gemm", "grouped_gemm_int4": "grouped_gemm"}
-# the kernels of the serving path (the quantized modes are not on it)
+# the kernels of the serving path (the quantized modes are not on it; int8
+# is on phase 15's dry-run)
 PATH_KERNELS = ("grouped_gemm", "flash_prefill", "splitkv_attention")
 INT4_BLOCK_N = 128
 SPILL = re.compile(r"[1-9]\d* bytes spill (stores|loads)")
@@ -274,6 +300,34 @@ MODEL_SPLITKV = (
     ("whisper-small", (12, 12, 64), 4, 64, range(33, 49)),
     ("internvl2-2b", (16, 8, 128), 4, 320, range(289, 305)),
 )
+
+# Phase 15: the AFD dry-run at Kimi K2's defaults (batch 128 over 3
+# micro-batches, context 32768, 24 A + 8 F nodes). Device 0's A block
+# decodes 4 sequences with 4 query heads of one KV head (group 4, d 112)
+# over every slot of a 32768-slot cache; its F block holds 6 of the 384
+# experts and gets the micro-batch's 48 tokens x top-8. Phase 3 holds the
+# kernels at both blocks; phase 15 runs the role programs around them.
+KIMI = "kimi-k2-1t-a32b"
+KIMI_A_BLOCK = ((4, 1, 112), 4, 32768)         # (Hq, Hkv, d), B, T
+KIMI_F_BLOCK = (48, 6)                         # tokens, local experts
+# 15a: the fields a formula fixes, from the specs alone (JAX's lower_afd
+# gives the same): the padded micro-batch, the F program's per-device
+# argument bytes (dense, int8) and the M2N dispatch / combine bytes
+AFD_EXACT = {"mb": 48, "f_weight_bytes_dev": (529_173_504, 264_932_400),
+             "m2n": (691_200, 688_128)}
+# JAX's lower_afd at the same cell (TPU-v5e pricing, 512 forced host
+# devices): per role flops, bytes and collective link bytes per device,
+# and the pipeline it priced; logged beside the port's counts
+AFD_JAX = {"a_role": (1_617_965_056, 5_598_438_400, 875_968),
+           "f_role": (203_405_443_072, 2_976_886_528, 34_066_872),
+           "f_role int8": (204_462_407_680, 2_712_645_376, 34_066_872),
+           "period": 6.835700122100122e-03, "f_util": 0.5351712729113208,
+           "hfu": 0.15104743054974137}
+# 15b: the dead zone on the card, N_F of the 32 nodes
+AFD_NF = (4, 8, 16)
+# 15c: the granite cell measured on the card and on the CPU
+AFD_GRANITE = dict(arch="granite-moe-1b-a400m", batch=32, context=1024,
+                   n_a_nodes=4, n_f_nodes=4)
 
 # Phase 10: the JAX package's single-program serve (launch/serve.py --mode
 # ep) at full width and depth
@@ -1873,6 +1927,135 @@ def splitkv_model_shapes(torch, timer, gen):
     return rows
 
 
+def checksum(torch, t) -> str:
+    """A short hash of a bf16 tensor's bits: a card whose kernel gives
+    other bits than another card's shows here."""
+    import hashlib
+    bits = t.contiguous().view(torch.int16).cpu().numpy().tobytes()
+    return hashlib.sha256(bits).hexdigest()[:16]
+
+
+def bf16_checksums(torch, cfg) -> None:
+    """Each kernel's bf16 output on fixed seeded inputs at the main path's
+    shapes, hashed and logged (not gated): the grouped GEMM's decode
+    gate|up in its three weight modes, flash prefill's 64-row chunk and
+    split-KV's 8 x T 1024 (phase 3's Kimi K2 block rows log theirs)."""
+    from repro_torch.kernels import ops
+    gen = seeded(torch, 31)
+    bf = torch.bfloat16
+    E, D, F, k = cfg.n_experts, cfg.d_model, cfg.moe_d_ff, cfg.top_k
+    sort_idx, sizes = routing(torch, 8, E, k, gen)
+    x = torch.randn((8, D), generator=gen, device="cuda").to(bf)
+    w = torch.randn((E, D, 2 * F), generator=gen, device="cuda").to(bf)
+    sums = {"grouped_gemm": ops.grouped_gemm(x, w, sizes,
+                                             row_index=sort_idx // k)}
+    for mode in ("int8", "int4"):
+        codes, scales = quantize(torch, mode, w)
+        sums[f"grouped_gemm_{mode}"] = ops.grouped_gemm(
+            x, codes, sizes, scales=scales, row_index=sort_idx // k)
+    hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    q = torch.randn((1, 64, hq, d), generator=gen, device="cuda").to(bf)
+    kc = torch.randn((1, 1024, hkv, d), generator=gen, device="cuda").to(bf)
+    vc = torch.randn((1, 1024, hkv, d), generator=gen, device="cuda").to(bf)
+    sums["flash_prefill"] = ops.flash_prefill_attention(
+        q, kc, vc, q_offset=448, t_valid=512)
+    q = torch.randn((8, hq, d), generator=gen, device="cuda").to(bf)
+    kc = torch.randn((8, 1024, hkv, d), generator=gen, device="cuda").to(bf)
+    vc = torch.randn((8, 1024, hkv, d), generator=gen, device="cuda").to(bf)
+    lengths = torch.tensor([330, 120, 512, 64, 400, 575, 250, 90],
+                           dtype=torch.int32, device="cuda")
+    sums["splitkv_attention"] = ops.splitkv_attention(q, kc, vc, lengths)
+    for name, out in sums.items():
+        log(f"  checksum {name} bf16: {checksum(torch, out)}")
+
+
+def kimi_block_kernels(torch, timer, gen) -> dict:
+    """The kernels at phase 15's Kimi K2 blocks: split-KV at device 0's A
+    block (``KIMI_A_BLOCK``, every slot live; bf16 and f32 against the
+    plain version, timed beside its bound, plain and SDPA); the grouped
+    GEMM's block mode at device 0's F block (``KIMI_F_BLOCK``: 48 tokens x
+    top-8 over 384 experts, experts 0-5 held) in the dense and int8 modes,
+    both GEMMs against the plain version, timed beside the bound of the
+    routed rows and visited experts (``ops.grouped_gemm_work``), the plain
+    version and, dense, ``torch._grouped_mm`` on the routed rows. Each
+    output's bf16 checksum is logged. Returns the rows by name."""
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.models.moe import sort_by_local_expert
+    heads, b, t = KIMI_A_BLOCK
+    row, (q, kc, vc, lengths) = splitkv_row(
+        torch, timer, gen, "Kimi K2 A block", heads, t,
+        [[t] * b, [1, 4096, t - 1, t]], [t] * b, clean=True)
+    log(f"  checksum splitkv_attention Kimi K2 A block bf16: "
+        f"{checksum(torch, ops.splitkv_attention(q, kc, vc, lengths))}")
+    rows = {"splitkv_attention Kimi K2 A block": row}
+    del q, kc, vc
+
+    cfg = configs.get_config(KIMI)
+    D, M, k = cfg.d_model, cfg.moe_d_ff, cfg.top_k
+    tokens, e_loc = KIMI_F_BLOCK
+    bf = torch.bfloat16
+    topi = torch.topk(torch.rand((tokens, cfg.n_experts), generator=gen,
+                                 device="cuda"), k, dim=-1).indices
+    sort_idx, sizes = sort_by_local_expert(topi, 0, e_loc)
+    routed, visited = int(sizes.sum()), int((sizes > 0).sum())
+    offs = torch.cumsum(sizes, 0).to(torch.int32)
+    x = torch.randn((tokens, D), generator=gen, device="cuda").to(bf)
+    h = torch.randn((tokens * k, M), generator=gen, device="cuda").to(bf)
+    ws = {"gate|up": torch.randn((e_loc, D, 2 * M), generator=gen,
+                                 device="cuda").to(bf),
+          "down": torch.randn((e_loc, M, D), generator=gen,
+                              device="cuda").to(bf)}
+    kws = {"gate|up": (x, dict(row_index=sort_idx // k)),
+           "down": (h, dict(out_index=sort_idx, out_rows=tokens * k))}
+    lib_x = {"gate|up": x[sort_idx[:routed] // k].contiguous(),
+             "down": h[:routed].contiguous()}
+    for mode in ("dense", "int8"):
+        for part, w in ws.items():
+            lhs, kw = kws[part]
+            rhs, sc = ((w, None) if mode == "dense"
+                       else quantize(torch, "int8", w))
+            kk = lhs.shape[1]
+            for dt in (bf, torch.float32):
+                l_dt = lhs.to(dt)
+                r_dt = rhs.to(dt) if mode == "dense" else rhs
+                err = check_close(
+                    f"grouped_gemm Kimi K2 F block {mode} {part} {dt}",
+                    ops.grouped_gemm(l_dt, r_dt, sizes, scales=sc, **kw),
+                    ops.grouped_gemm(l_dt, r_dt, sizes, scales=sc,
+                                     impl="plain", **kw),
+                    0.15 * math.sqrt(kk) if dt == bf else 2e-5 * kk)
+                if dt == bf:
+                    bf16_err = err
+            call = lambda: ops.grouped_gemm(lhs, rhs, sizes, scales=sc,  # noqa: E731
+                                            **kw)
+            log(f"  checksum grouped_gemm Kimi K2 F block {mode} {part} "
+                f"bf16: {checksum(torch, call())}")
+            flops, nbytes = ops.grouped_gemm_work(lhs, rhs, sizes,
+                                                  scales=sc, **kw)
+            b_ms, b_by = bound(nbytes, flops, PEAK_BF16_FLOPS)
+            ms = timer(call)
+            plain_ms = timer(lambda: ops.grouped_gemm(
+                lhs, rhs, sizes, scales=sc, impl="plain", **kw), iters=5)
+            library_ms = (timer(lambda: torch._grouped_mm(
+                lib_x[part], w, offs=offs))
+                if mode == "dense" and hasattr(torch, "_grouped_mm")
+                else None)
+            log(f"  grouped_gemm Kimi K2 F block {mode} {part} bf16 (M="
+                f"{tokens * k}, K={kk}, "
+                f"N={w.shape[2]}, {routed} routed rows, {visited}/{e_loc} "
+                f"experts, {nbytes / 1e6:.1f} MB): kernel {ms:.4f} ms, "
+                f"plain {plain_ms:.4f} ms, library {library_ms} ms, bound "
+                f"{b_ms:.4f} ms ({b_by}) = {b_ms / ms:.1%} of it")
+            rows[f"grouped_gemm Kimi K2 F block {mode} {part}"] = {
+                "max_abs_err": bf16_err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": library_ms, "routed": routed,
+                "visited": visited}
+    log("  kimi_block_kernels " + json.dumps(rows))
+    return rows
+
+
 def model_path_check(torch, cfg, params, batch, steps: int, max_len: int,
                      replay: bool = False) -> dict:
     """``Model`` on the kernels against ``Model(impl="plain")`` on the same
@@ -3038,19 +3221,35 @@ def front_door(args, timeout: int = 600):
     """``python -m repro_torch ARGS`` in a fresh interpreter (the
     provisioning search forks its worker pool, which must not inherit this
     process's CUDA context); returns (wall s, stdout)."""
+    t0 = time.perf_counter()
+    proc = _module_proc("repro_torch", args)
+    out, err = _finish(proc, timeout)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"python -m repro_torch {' '.join(args)} exited "
+                             f"{proc.returncode}: {err[-2000:]}")
+    return wall, out
+
+
+def _module_proc(module: str, args):
+    """``python -m MODULE ARGS`` started in a fresh interpreter."""
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
         [os.path.join(ROOT, "src")] + ([env["PYTHONPATH"]]
                                        if env.get("PYTHONPATH") else []))
-    t0 = time.perf_counter()
-    res = subprocess.run([sys.executable, "-m", "repro_torch", *args],
-                         env=env, capture_output=True, text=True,
-                         timeout=timeout)
-    wall = time.perf_counter() - t0
-    if res.returncode != 0:
-        raise AssertionError(f"python -m repro_torch {' '.join(args)} exited "
-                             f"{res.returncode}: {res.stderr[-2000:]}")
-    return wall, res.stdout
+    return subprocess.Popen([sys.executable, "-m", module, *args], env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+
+def _finish(proc, timeout: int):
+    """(stdout, stderr) of ``proc``; killed if it outlives ``timeout``."""
+    try:
+        return proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise
 
 
 def _verdicts(doc) -> dict:
@@ -3236,6 +3435,195 @@ def provisioning(torch, calib) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the AFD dry-run, priced and measured
+# ---------------------------------------------------------------------------
+
+def afd_priced(tmp) -> dict:
+    """15a: ``python -m repro_torch.launch.afd_dryrun --arch
+    kimi-k2-1t-a32b`` (its ``main``, in this process) priced on TPU v5e
+    and on the H100, dense and ``--int8``, each into its own ``--out``. The
+    fields a formula fixes must equal ``AFD_EXACT``, and what it printed
+    what it wrote; each role's counts are logged beside JAX's."""
+    import contextlib
+    import io
+    from repro_torch.launch import afd_dryrun
+    recs = {}
+    for hw in ("TPUv5e", "H100"):
+        for int8 in (False, True):
+            out = os.path.join(tmp, f"afd_{hw}_{int8}.json")
+            printed = io.StringIO()
+            with contextlib.redirect_stdout(printed):
+                afd_dryrun.main(["--arch", KIMI, "--hardware", hw, "--out",
+                                 out] + (["--int8"] if int8 else []))
+            with open(out) as f:
+                (key, rec), = json.load(f).items()
+            if json.loads(printed.getvalue()) != rec:
+                raise AssertionError(f"afd_dryrun {key}: printed record != "
+                                     "written record")
+            recs[(hw, int8)] = rec
+    for (hw, int8), rec in recs.items():
+        m2n = (rec["m2n"]["dispatch_bytes"], rec["m2n"]["combine_bytes"])
+        got = (rec["mb"], rec["f_weight_bytes_dev"], m2n)
+        want = (AFD_EXACT["mb"], AFD_EXACT["f_weight_bytes_dev"][int8],
+                AFD_EXACT["m2n"])
+        if got != want or rec["priced_on"] != hw:
+            raise AssertionError(f"afd_dryrun {hw} int8={int8}: mb, "
+                                 f"f_weight_bytes_dev, m2n {got} != {want}")
+        label = f"{hw}{' int8' if int8 else ''}"
+        for role in ("a_role", "f_role"):
+            r = rec[role]
+            jf, jb, jl = AFD_JAX[f"{role} int8" if int8 and role == "f_role"
+                                 else role]
+            log(f"  15a {label} {role}: flops {r['flops_dev']:.6e} (JAX "
+                f"{jf:.6e}), bytes {r['bytes_dev']:.6e} (JAX {jb:.6e}), "
+                f"link {r['coll_link_dev']:.6e} (JAX {jl:.6e}); t_compute "
+                f"{r['t_compute']:.4e} t_memory {r['t_memory']:.4e} "
+                f"t_collective {r['t_collective']:.4e} s, pricing "
+                f"{r['compile_s']} s")
+        log(f"  15a {label}: period {rec['pipeline']['period']:.4e} s, "
+            f"a/f util {rec['pipeline']['a_util']:.4f} / "
+            f"{rec['pipeline']['f_util']:.4f}, FFN HFU "
+            f"{rec['ffn_stage']['hfu']:.4e} (JAX on TPU v5e: period "
+            f"{AFD_JAX['period']:.4e}, f_util {AFD_JAX['f_util']:.4f}, HFU "
+            f"{AFD_JAX['hfu']:.4f})")
+    log(f"  15a exact fields as the specs fix them: mb {AFD_EXACT['mb']}, "
+        f"f_weight_bytes_dev {AFD_EXACT['f_weight_bytes_dev']}, m2n "
+        f"{AFD_EXACT['m2n']}")
+    return recs
+
+
+def _measured(torch, label, **kw) -> tuple:
+    """``measure_afd`` at Kimi K2's cell with ``kw``, the counts reset just
+    before and read just after; gates each role call's launches and its
+    output against the plain versions. Returns (record, launches)."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.afd_dryrun import measure_afd
+    ops.reset_launch_counts()
+    rec = measure_afd(KIMI, **kw)
+    torch.cuda.synchronize()
+    window = ops.launch_counts()
+    gg = "grouped_gemm_int8" if kw.get("int8") else "grouped_gemm"
+    want = {"a_role": {"splitkv_attention": 1},
+            "f_role": {gg: 2}}
+    for role in ("a_role", "f_role"):
+        r = rec[role]
+        calls = {n: c for n, c in r["launches"].items() if c}
+        if calls != want[role]:
+            raise AssertionError(f"15b {label} {role}: launches per call "
+                                 f"{r['launches']}, want {want[role]}")
+        if not r["rel_err_plain"] <= PATH_REL_TOL:
+            raise AssertionError(f"15b {label} {role}: rel_err against the "
+                                 f"plain versions {r['rel_err_plain']}")
+        log(f"  15b {label} {role}: wall {r['t_measured'] * 1e3:.4f} ms per "
+            f"call, device {r['t_device'] * 1e3:.4f} ms per call, priced "
+            f"(H100) {r['t_priced'] * 1e3:.4f} ms (compute "
+            f"{r['t_compute'] * 1e3:.4f}, memory {r['t_memory'] * 1e3:.4f}, "
+            f"collective {r['t_collective'] * 1e3:.4f}), rel_err vs plain "
+            f"{r['rel_err_plain']:.3e}, launches per call {calls}")
+    for times, key, b in (("wall", "t_measured", rec),
+                          ("device", "t_device", rec["device_only"])):
+        p, f = b["pipeline"], b["ffn_stage"]
+        by = ("A" if rec["a_role"][key] >= rec["f_role"][key] else "F")
+        log(f"  15b {label} ({rec['n_a_nodes']}A + {rec['n_f_nodes']}F, mb "
+            f"{rec['mb']}, F block {rec['f_expert_bytes_dev'] / 1e6:.1f} "
+            f"MB) on {times} times: period {p['period'] * 1e3:.4f} ms, set "
+            f"by {by}, a/f util {p['a_util']:.4f} / {p['f_util']:.4f}, FFN "
+            f"HFU {f['hfu']:.4e} (ofu {f['ofu']:.4e}, s_t {f['s_t']:.4f})")
+    log(f"  15b {label}: launches over the call {window}")
+    for name, n in window.items():
+        if name in ("splitkv_attention", gg) and not n:
+            raise AssertionError(f"15b {label}: {name} never launched")
+    return rec, window
+
+
+def afd_measured(torch, card) -> dict:
+    """15b: ``measure_afd`` on the card at Kimi K2's defaults, dense and
+    int8, then at N_F of ``AFD_NF`` (A the rest of the 32 nodes). Gates
+    each call's launches and outputs (``_measured``) and the int8 F block's
+    weight bytes at half the dense block's plus the scales."""
+    out = {}
+    t0 = time.perf_counter()
+    for nf in AFD_NF:
+        label = "defaults" if nf == 8 else f"N_F {nf}"
+        out[nf], _ = _measured(torch, label, n_a_nodes=32 - nf,
+                               n_f_nodes=nf)
+        _free(torch)
+    out["int8"], out["int8_launches"] = _measured(torch, "int8", int8=True)
+    dense_b = out[8]["f_expert_bytes_dev"]
+    int8_b = out["int8"]["f_expert_bytes_dev"]
+    scales = 2 * KIMI_F_BLOCK[1] * 4
+    log(f"  15b F block weight bytes: int8 {int8_b:,} = dense {dense_b:,} / "
+        f"2 + {scales} B of scales: {int8_b == dense_b // 2 + scales}; "
+        f"({card}) {time.perf_counter() - t0:.1f} s")
+    if int8_b != dense_b // 2 + scales:
+        raise AssertionError("int8 F block is not half the dense block")
+    for role in ("a_role", "f_role"):
+        log(f"  15b defaults {role}: largest kernels per call")
+        for ms, n, key in out[8][role]["top_kernels"]:
+            log(f"    {ms:8.4f} ms {n:4d} x {key[:80]}")
+    return out
+
+
+def afd_card_vs_cpu(torch) -> None:
+    """15c: granite's 4A + 4F cell (batch 32, context 1024) measured on the
+    card and on the CPU: the exact fields equal, and the two blocks'
+    outputs (kernels on the card, plain versions on the CPU, bf16) within
+    ``PATH_REL_TOL``."""
+    from repro_torch.launch.afd_dryrun import measure_afd
+    gpu = measure_afd(**AFD_GRANITE)
+    cpu = measure_afd(**AFD_GRANITE, device="cpu", iters=3)
+    exact = ("mb", "f_weight_bytes_dev", "f_expert_bytes_dev", "m2n")
+    for key in exact:
+        if gpu[key] != cpu[key]:
+            raise AssertionError(f"15c {key}: card {gpu[key]} != cpu "
+                                 f"{cpu[key]}")
+    errs = {}
+    for role, outs in gpu["outputs"].items():
+        for k, v in outs.items():
+            if k != "topi":
+                want = cpu["outputs"][role][k].float()
+                errs[f"{role}.{k}"] = (float((v.float() - want).norm())
+                                       / (float(want.norm()) or 1.0))
+    same = all(gpu[r][k] == cpu[r][k] for r in ("a_role", "f_role")
+               for k in ("flops_dev", "bytes_dev", "coll_link_dev"))
+    log(f"  15c granite 4A + 4F: {', '.join(exact)} equal; outputs card vs "
+        f"cpu {json.dumps(errs)} (≤ {PATH_REL_TOL}); priced counts equal: "
+        f"{same}; t_a / t_f on the card, wall "
+        f"{gpu['a_role']['t_measured'] * 1e3:.4f} / "
+        f"{gpu['f_role']['t_measured'] * 1e3:.4f} ms, device "
+        f"{gpu['a_role']['t_device'] * 1e3:.4f} / "
+        f"{gpu['f_role']['t_device'] * 1e3:.4f} ms")
+    if not all(e <= PATH_REL_TOL for e in errs.values()):
+        raise AssertionError("15c: the card's blocks disagree with the CPU's")
+
+
+def afd_dryrun_phase(torch, card) -> dict:
+    """Phase 15: 15a priced on the host, 15b measured on the card, 15c
+    card against CPU."""
+    import tempfile
+    t0 = time.perf_counter()
+    _free(torch)
+    log("  15a: priced on the host, Kimi K2 at its defaults")
+    with tempfile.TemporaryDirectory() as tmp:
+        priced = afd_priced(tmp)
+    log(f"  15a {time.perf_counter() - t0:.1f} s")
+    log("  15b: measured on the card")
+    out = afd_measured(torch, card)
+    for key, rec in ((("H100", False), out[8]), (("H100", True),
+                                                  out["int8"])):
+        log(f"  15b {'int8' if key[1] else 'defaults'} priced on the card "
+            "== priced on the host (15a, H100): " + ", ".join(
+                f"{role} {rec[role]['t_priced'] == priced[key][role]['t_stage']}"
+                for role in ("a_role", "f_role")))
+    log("  15c: granite 4A + 4F, card against CPU")
+    afd_card_vs_cpu(torch)
+    _free(torch)
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"  phase 15 {out['phase_s']:.1f} s")
+    return out
+
+
 def _steady_engine(cfg, params, warm_ticks: int):
     """16 requests of 256 prompt tokens arrive at once; after
     ``warm_ticks`` ticks the engine interleaves one 64-token prefill chunk
@@ -3303,7 +3691,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
                     help="trace a window of granite's engine ticks after "
-                         "phase 14")
+                         "phase 15")
     args = ap.parse_args()
 
     # phase 12's bitwise checks run cuBLAS under deterministic algorithms,
@@ -3363,6 +3751,8 @@ def main() -> int:
     fleet_shape_kernels(torch, cfg, seeded(torch, 8))
     jamba_shape_kernels(torch, timer, seeded(torch, 10))
     splitkv_model_shapes(torch, timer, seeded(torch, 14))
+    kimi = kimi_block_kernels(torch, timer, seeded(torch, 15))
+    bf16_checksums(torch, cfg)
     del timer
 
     log("[4] full-width serve: granite-moe-1b-a400m, 24 layers, bf16")
@@ -3406,16 +3796,25 @@ def main() -> int:
         "provision --calibrate on the card, full-width verdicts, plan / "
         "sweep / bench / list")
     provisioning(torch, calib)
+    log("[15] the AFD dry-run: Kimi K2's role programs per device, priced "
+        "on the host and measured on the card")
+    afd = afd_dryrun_phase(torch, card)
     if args.profile:
-        log("[15] profiled window of engine ticks")
+        log("[16] profiled window of engine ticks")
         torch.cuda.empty_cache()
         profile_ticks(torch, cfg, init_params(cfg, seed=0, device="cuda"))
     log(f"done in {time.perf_counter() - t_start:.1f} s")
 
     # launches: the serve's counts for the serving path's kernels; the
-    # quantized modes, which the serving path never runs, report the
-    # launches of their phase-3 checks
+    # int8 mode's over phase 15b's int8 dry-run (its first path), beside
+    # its numbers at that path's shape (Kimi K2's F block, gate|up); int4,
+    # which no path runs, reports the launches of its phase-3 checks
     launches.update(check_launches)
+    launches["grouped_gemm_int8"] = afd["int8_launches"]["grouped_gemm_int8"]
+    int8_row = kimi["grouped_gemm Kimi K2 F block int8 gate|up"]
+    measured["grouped_gemm_int8"] = {
+        k: int8_row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                 "bound_by", "library_ms")}
     kernels = [{"name": name, "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/"
                           f"{SOURCES.get(name, name)}.cu",

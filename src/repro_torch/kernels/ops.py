@@ -9,11 +9,18 @@ Every op has two implementations:
 kernel, CPU tensors to the plain version. ``impl="plain"`` on CUDA tensors
 is an explicit request (the end-to-end path check of ``chip_smoke.py``);
 ``impl="cuda"`` on CPU tensors raises.
+
+While a work observer is set (``set_work_observer``), each op runs inside
+``observer.kernel(work, *inputs)``, which gets the kernel's own work on
+these inputs (``*_work`` below) in place of the arithmetic of whichever
+version runs: the plain grouped GEMM multiplies every row by every expert,
+the kernel only the routed rows. With none set, an op pays one check.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import contextlib
+from typing import Optional, Tuple
 
 import torch
 
@@ -23,6 +30,79 @@ from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import splitkv_attention as _skv
 
 IMPLS = ("cuda", "plain")
+
+# The work observer (``set_work_observer``), if any.
+_OBSERVER = None
+_UNOBSERVED = contextlib.nullcontext()
+
+
+def set_work_observer(observer):
+    """Set the object whose ``kernel(work, *inputs)`` context each op runs
+    in (``None``: no observer); returns the one it replaces."""
+    global _OBSERVER
+    previous, _OBSERVER = _OBSERVER, observer
+    return previous
+
+
+def _bytes(*ts: Optional[torch.Tensor]) -> int:
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+def grouped_gemm_work(lhs: torch.Tensor, rhs: torch.Tensor,
+                      group_sizes: torch.Tensor,
+                      row_index: Optional[torch.Tensor] = None,
+                      out_index: Optional[torch.Tensor] = None,
+                      out_rows: Optional[int] = None,
+                      scales: Optional[torch.Tensor] = None
+                      ) -> Tuple[int, int]:
+    """(FLOPs, bytes) of one grouped-GEMM call on these inputs: 2·K·N per
+    routed row (rows past ``sum(group_sizes)`` are written as zeros, not
+    computed); lhs, the index vectors and the group sizes read once, each
+    visited expert's weights (codes and scales) once, the output written
+    once. Reads the group sizes on the host."""
+    m = lhs.shape[0] if row_index is None else row_index.shape[0]
+    k, n = lhs.shape[1], rhs.shape[2]
+    sizes = group_sizes.long()
+    routed = min(int(sizes.sum()), m)
+    visited = int((sizes > 0).sum())
+    expert = _bytes(rhs[0]) + (0 if scales is None else _bytes(scales[0]))
+    n_out = m if out_index is None or out_rows is None else int(out_rows)
+    nbytes = (_bytes(lhs, row_index, out_index, group_sizes)
+              + visited * expert + n_out * n * lhs.element_size())
+    return 2 * routed * k * n, nbytes
+
+
+def splitkv_work(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 lengths: torch.Tensor, return_lse: bool = False
+                 ) -> Tuple[int, int]:
+    """(FLOPs, bytes) of one split-KV call: 4·d per live key and query
+    head (scores and the value sum); q, the live keys' K and V rows and the
+    lengths read once, the output (and LSE) written once."""
+    b, hq, d = q.shape
+    t, hkv = k.shape[1], k.shape[2]
+    live = int(lengths.long().clamp(0, t).sum())
+    nbytes = (2 * _bytes(q) + 2 * live * hkv * d * k.element_size()
+              + _bytes(lengths) + (b * hq * 4 if return_lse else 0))
+    return 4 * live * hq * d, nbytes
+
+
+def flash_prefill_work(q: torch.Tensor, k: torch.Tensor,
+                       causal: bool = True, window: Optional[int] = None,
+                       q_offset: int = 0, t_valid: Optional[int] = None
+                       ) -> Tuple[int, int]:
+    """(FLOPs, bytes) of one flash-prefill call: 4·d per live (query row,
+    key) pair and query head; q, the live KV prefix and the output once."""
+    b, s, hq, d = q.shape
+    t, hkv = k.shape[1], k.shape[2]
+    tv = t if t_valid is None else min(t_valid, t)
+    keys = 0
+    for j in range(s):
+        row = q_offset + j
+        hi = min(tv, row + 1) if causal else tv
+        lo = max(0, row - window + 1) if window is not None else 0
+        keys += max(hi - lo, 0)
+    nbytes = 2 * _bytes(q) + 2 * b * tv * hkv * d * k.element_size()
+    return 4 * b * keys * hq * d, nbytes
 
 
 def resolve_impl(impl: Optional[str], x: torch.Tensor) -> str:
@@ -51,12 +131,15 @@ def grouped_gemm(lhs: torch.Tensor, rhs: torch.Tensor,
     codes packed two per byte along K (G, K/2, N); the output then has
     lhs's dtype.
     """
-    if resolve_impl(impl, lhs) == "plain":
-        return _gg.plain(lhs, rhs, group_sizes, row_index, out_index,
-                         out_rows, scales)
-    return _gg.grouped_gemm(lhs, rhs, group_sizes, row_index=row_index,
-                            out_index=out_index, out_rows=out_rows,
-                            scales=scales)
+    with _UNOBSERVED if _OBSERVER is None else _OBSERVER.kernel(
+            grouped_gemm_work, lhs, rhs, group_sizes, row_index, out_index,
+            out_rows, scales):
+        if resolve_impl(impl, lhs) == "plain":
+            return _gg.plain(lhs, rhs, group_sizes, row_index, out_index,
+                             out_rows, scales)
+        return _gg.grouped_gemm(lhs, rhs, group_sizes, row_index=row_index,
+                                out_index=out_index, out_rows=out_rows,
+                                scales=scales)
 
 
 def splitkv_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -67,10 +150,13 @@ def splitkv_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q: (B, Hq, d); k, v: (B, T, Hkv, d); lengths: (B,) int32 or int64,
     each clamped to [0, T].
     """
-    if resolve_impl(impl, q) == "plain":
-        return _ref.splitkv_attention_ref(q, k, v, lengths,
-                                          return_lse=return_lse)
-    return _skv.splitkv_attention(q, k, v, lengths, return_lse=return_lse)
+    with _UNOBSERVED if _OBSERVER is None else _OBSERVER.kernel(
+            splitkv_work, q, k, v, lengths, return_lse):
+        if resolve_impl(impl, q) == "plain":
+            return _ref.splitkv_attention_ref(q, k, v, lengths,
+                                              return_lse=return_lse)
+        return _skv.splitkv_attention(q, k, v, lengths,
+                                      return_lse=return_lse)
 
 
 def flash_prefill_attention(q: torch.Tensor, k: torch.Tensor,
@@ -81,11 +167,14 @@ def flash_prefill_attention(q: torch.Tensor, k: torch.Tensor,
     """Prefill attention (B, S, Hq, d) against a (B, T, Hkv, d) cache:
     query row j at absolute position ``q_offset + j``, the first
     ``t_valid`` KV slots live."""
-    if resolve_impl(impl, q) == "plain":
-        return _ref.flash_prefill_ref(q, k, v, causal=causal, window=window,
-                                      q_offset=q_offset, t_valid=t_valid)
-    return _fp.flash_prefill(q, k, v, causal=causal, window=window,
-                             q_offset=q_offset, t_valid=t_valid)
+    with _UNOBSERVED if _OBSERVER is None else _OBSERVER.kernel(
+            flash_prefill_work, q, k, causal, window, q_offset, t_valid):
+        if resolve_impl(impl, q) == "plain":
+            return _ref.flash_prefill_ref(q, k, v, causal=causal,
+                                          window=window, q_offset=q_offset,
+                                          t_valid=t_valid)
+        return _fp.flash_prefill(q, k, v, causal=causal, window=window,
+                                 q_offset=q_offset, t_valid=t_valid)
 
 
 def launch_counts() -> dict:

@@ -157,8 +157,9 @@ def moe_capacity(params, cfg: ArchConfig, x: torch.Tensor,
 
 def expert_ffn(cfg: ArchConfig, wi: torch.Tensor, wo: torch.Tensor,
                tokens: torch.Tensor, topw: torch.Tensor, topi: torch.Tensor,
-               impl: Optional[str] = None,
-               first_expert: int = 0) -> torch.Tensor:
+               impl: Optional[str] = None, first_expert: int = 0,
+               wi_scale: Optional[torch.Tensor] = None,
+               wo_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Routed-expert FFN of tokens (N, D) given their gating: the dispatch
     gather rides into the gate|up grouped GEMM as ``row_index`` and the
     combine unpermute out of the down GEMM as an ``out_index`` scatter.
@@ -166,15 +167,19 @@ def expert_ffn(cfg: ArchConfig, wi: torch.Tensor, wo: torch.Tensor,
 
     ``wi``/``wo`` may hold a block of the experts, ``first_expert`` and
     on (``wi.shape[0]`` of them): pairs routed elsewhere then add 0, so
-    the blocks' outputs sum to the whole FFN's (expert parallelism)."""
+    the blocks' outputs sum to the whole FFN's (expert parallelism).
+    With ``wi_scale``/``wo_scale`` (per expert, (E,)) the weights are int8
+    codes and both GEMMs run the grouped GEMM's int8 mode."""
     n, d = tokens.shape
     sort_idx, group_sizes = sort_by_local_expert(topi, first_expert,
                                                  wi.shape[0])
-    h = kops.grouped_gemm(tokens, wi.to(tokens.dtype), group_sizes,
-                          impl=impl, row_index=sort_idx // cfg.top_k)
-    ys = kops.grouped_gemm(_expert_ffn(cfg, h), wo.to(tokens.dtype),
-                           group_sizes, impl=impl, out_index=sort_idx,
-                           out_rows=n * cfg.top_k)
+    if wi_scale is None:
+        wi, wo = wi.to(tokens.dtype), wo.to(tokens.dtype)
+    h = kops.grouped_gemm(tokens, wi, group_sizes, impl=impl,
+                          row_index=sort_idx // cfg.top_k, scales=wi_scale)
+    ys = kops.grouped_gemm(_expert_ffn(cfg, h), wo, group_sizes, impl=impl,
+                           out_index=sort_idx, out_rows=n * cfg.top_k,
+                           scales=wo_scale)
     y = ys.reshape(n, cfg.top_k, d)
     return torch.einsum("nkd,nk->nd", y, topw.to(tokens.dtype))
 

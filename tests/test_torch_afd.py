@@ -268,9 +268,13 @@ def test_split_nodes():
 
 def test_port_imports_no_jax_and_no_repro():
     code = (
-        "import sys, pkgutil, importlib, repro_torch\n"
+        "import os, sys, pkgutil, importlib, repro_torch\n"
+        "env = dict(os.environ)\n"
         "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
+        "import torch.distributed as dist\n"
+        "assert dict(os.environ) == env, 'an import set an environment variable'\n"
+        "assert not dist.is_initialized(), 'an import started a process group'\n"
         "bad = sorted(n for n in sys.modules if n == 'jax' or "
         "n.startswith('jax.') or n.startswith('jaxlib') or n == 'repro' "
         "or n.startswith('repro.'))\n"
@@ -304,7 +308,10 @@ def test_port_imports_no_jax_and_no_repro():
             "pricing", "pareto", "search", "recommend")} | {
         f"repro_torch.configs.{m}" for m in (
             "qwen1_5_0_5b", "qwen3_8b", "granite_8b", "h2o_danube_1_8b",
-            "internvl2_2b", "whisper_small", "mamba2_2_7b")} <= imported
+            "internvl2_2b", "whisper_small", "mamba2_2_7b")} | {
+        "repro_torch.core.overlap"} | {
+        f"repro_torch.launch.{m}" for m in (
+            "mesh", "hlo_analysis", "afd_dryrun")} <= imported
 
 
 def test_runtime_defaults_to_cuda():
