@@ -203,6 +203,30 @@ Phases, each of which fails the run by raising:
    granite's 4A + 4F cell measured on the card and on the CPU: the exact
    fields equal, the outputs within ``PATH_REL_TOL``.
 
+17. The grouped GEMM's tilings (``kernels/autotune.py``): a. the library
+   lists ``grouped_gemm.TILINGS``, refuses a tiling it is not built for,
+   and every tiling gives the default's bits in the dense, int8 and int4
+   modes (granite's decode and prefill shapes, fused gather and scatter,
+   and an edge case of partial K steps, partial column tiles, a 300-row
+   expert, surplus rows and 16-column int4 blocks), the default within
+   the GEMM tolerance of the plain version; b. ``autotune.tune`` on the
+   ``tune`` command's default shapes into a temporary table, each
+   candidate's time logged beside the shape's bound and
+   ``torch._grouped_mm``; c. phase 3's GEMM rows (granite's three in
+   each weight mode, Jamba's three, Kimi K2's F block dense and int8)
+   timed under the committed table's tiles and the default tiles, in
+   turns. Phases 3-15 run with the committed table (``ops.grouped_gemm``
+   consults it); the grouped GEMM's rows of the kernels' record name
+   their tiling and carry their time under the default tiling.
+18. The multi-pod dry-run (``launch/dryrun.py``): a. the sharded train
+   step (``distributed_train_step``, DTensors over a (1, 1) NCCL mesh)
+   bit-identical to ``build_step_fn`` under the same EP hook (granite at
+   full width on 2 layers, float32, deterministic algorithms); b. one
+   decode cell's program on DTensors with the split-KV override,
+   bit-identical to ``Model.decode_step`` on the kernels; c.
+   ``lower_cell`` on ``HILLCLIMB`` priced on TPU v5e and on the H100 in
+   this process, records and ``price_s`` logged.
+
 With ``--profile`` a last phase (16) times 12 steady engine ticks (16
 sequences, prefill chunks interleaved with decode), traces the same ticks
 with ``torch.profiler`` and prints the device's busy share of the wall
@@ -2503,7 +2527,8 @@ def train_grads_vs_cpu(torch, card, cfg) -> dict:
         errs[name] = float((g - w).norm() / w.norm().clamp(min=1e-12))
     worst = sorted(errs, key=errs.get, reverse=True)[:3]
     log(f"  {card}: loss card {float(loss_gpu):.6f} / CPU "
-        f"{float(loss_cpu):.6f} ({t_cpu:.1f} s on the CPU); {len(errs)} "
+        f"{float(loss_cpu):.6f} ({t_cpu:.1f} s on the CPU, "
+        f"{torch.get_num_threads()} threads); {len(errs)} "
         "leaves, worst relative error " + ", ".join(
             f"{n} {errs[n]:.3e}" for n in worst)
         + f" ≤ {TRAIN_GRAD_RTOL}")
@@ -3624,6 +3649,414 @@ def afd_dryrun_phase(torch, card) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: the grouped GEMM's tilings and the autotuner
+# ---------------------------------------------------------------------------
+
+# repetitions per candidate of phase 17's tune (the committed table's run
+# is ``python -m repro_torch tune --reps 200``)
+TUNE_REPS = 20
+
+
+def _gemm_operands(torch, gen, mode, e, k, n, sizes, block_n=INT4_BLOCK_N):
+    """bf16 weights (E, K, N) in ``mode`` (dense, or quantized on the card
+    by the port's helpers at ``block_n``) and the rows' sizes on the
+    card."""
+    from repro_torch.kernels import quant
+    w = torch.randn((e, k, n), generator=gen, device="cuda").to(torch.bfloat16)
+    if mode == "dense":
+        rhs, sc = w, None
+    elif mode == "int8":
+        rhs, sc = quant.quantize_experts(w)
+    else:
+        rhs, sc = quant.quantize_experts_int4(w, block_n=block_n)
+    return rhs, sc, torch.tensor(sizes, dtype=torch.int32, device="cuda")
+
+
+def tiling_bit_identity(torch, cfg, gen) -> int:
+    """17a: the library lists ``grouped_gemm.TILINGS``; a tiling it is not
+    built for is refused; every tiling gives the default's bits in the
+    dense, int8 and int4 modes (the tilings cut rows and columns only, and
+    the quantized modes scale per column in the epilogue), and the default
+    is within the GEMM tolerance of the plain version. Cases: granite's
+    decode and prefill gate|up (fused gather) and decode down (fused
+    scatter), and an edge case (K 1000, N 1040: partial K steps and
+    column tiles; one expert of 300 rows: many passes of every row tile;
+    12 surplus rows; int4 blocks of 16 columns, which no column tile
+    divides). Returns the number of calls compared."""
+    from repro_torch.kernels import grouped_gemm as gg
+    from repro_torch.kernels import ops
+    built = gg.kernel_tilings()
+    if built != gg.TILINGS:
+        raise AssertionError(f"library tilings {built} != {gg.TILINGS}")
+    x = torch.randn((16, 64), generator=gen, device="cuda").to(torch.bfloat16)
+    w = torch.randn((2, 64, 64), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    try:
+        gg.grouped_gemm(x, w, torch.tensor([8, 8], dtype=torch.int32,
+                                           device="cuda"), tiles=(8, 8, 8))
+    except RuntimeError as e:
+        log(f"  17a: tiles (8, 8, 8) refused: {e}")
+    else:
+        raise AssertionError("the grouped GEMM took a tiling it is not "
+                             "built for")
+    E, D, F, k = cfg.n_experts, cfg.d_model, cfg.moe_d_ff, cfg.top_k
+    cases = []
+    for label, tokens in (("decode", 8), ("prefill", 64)):
+        sort_idx, sizes = routing(torch, tokens, E, k, gen)
+        x = torch.randn((tokens, D), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        cases.append((f"granite {label} gate|up", x, E, D, 2 * F,
+                      sizes.tolist(), dict(row_index=sort_idx // k),
+                      INT4_BLOCK_N))
+        if label == "decode":
+            h = torch.randn((tokens * k, F), generator=gen,
+                            device="cuda").to(torch.bfloat16)
+            cases.append(("granite decode down", h, E, F, D, sizes.tolist(),
+                          dict(out_index=sort_idx, out_rows=tokens * k),
+                          INT4_BLOCK_N))
+    edge = torch.randn((330, 1000), generator=gen,
+                       device="cuda").to(torch.bfloat16)
+    cases.append(("edge K 1000 N 1040", edge, 8, 1000, 1040,
+                  [300, 0, 17, 1, 0, 0, 0, 0], {}, 16))
+    calls = 0
+    for label, lhs, e, kk, nn, sizes, kw, block_n in cases:
+        for mode in ("dense", "int8", "int4"):
+            rhs, sc, gs = _gemm_operands(torch, gen, mode, e, kk, nn, sizes,
+                                         block_n)
+            ref = gg.grouped_gemm(lhs, rhs, gs, scales=sc, **kw)
+            check_close(f"17a {label} {mode} default tiles", ref,
+                        ops.grouped_gemm(lhs, rhs, gs, scales=sc,
+                                         impl="plain", **kw),
+                        0.15 * math.sqrt(kk), show=False)
+            for tiles in gg.TILINGS[1:]:
+                got = gg.grouped_gemm(lhs, rhs, gs, scales=sc, tiles=tiles,
+                                      **kw)
+                calls += 1
+                if not torch.equal(got, ref):
+                    diff = (got.float() - ref.float()).abs().max()
+                    raise AssertionError(
+                        f"{label} {mode}: tiles {tiles} differ from the "
+                        f"default by up to {float(diff):.3e}")
+        log(f"  17a {label}: {len(gg.TILINGS)} tilings bit-identical in "
+            "dense, int8 and int4; default within 0.15·√K of plain")
+    return calls
+
+
+def tune_logged(torch, path: str) -> dict:
+    """17b: ``autotune.tune`` on the default shapes into ``path`` (a
+    temporary table), each candidate's time logged beside the shape's
+    bound and ``torch._grouped_mm`` on the same uniform groups and cold
+    weights, timed by the same rule."""
+    from repro_torch.__main__ import DEFAULT_TUNE_SHAPES
+    from repro_torch.kernels import autotune
+    t0 = time.perf_counter()
+    results = autotune.tune(DEFAULT_TUNE_SHAPES, reps=TUNE_REPS, path=path)
+    wall = time.perf_counter() - t0
+    out = {}
+    for (g, tpe, k, n), r in zip(DEFAULT_TUNE_SHAPES, results):
+        m = g * tpe
+        nbytes = (m * k + g * k * n + m * n) * 2 + g * 4
+        b_ms, b_by = bound(nbytes, 2 * m * k * n, PEAK_BF16_FLOPS)
+        lib_us = None
+        if hasattr(torch, "_grouped_mm"):
+            lhs, rhs, gs = autotune.cold_operands(m, k, n, g)
+            offs = torch.cumsum(gs, 0).to(torch.int32)
+            lib_us = autotune.time_calls(lambda i: torch._grouped_mm(
+                lhs, rhs[i], offs=offs), len(rhs), TUNE_REPS)
+            del lhs, rhs
+        log(f"  17b tune {r['key']} (M={m}, K={k}, N={n}): best {r['best']}"
+            f"; bound {b_ms * 1e3:.1f} µs ({b_by}), _grouped_mm "
+            f"{lib_us if lib_us is None else round(lib_us, 1)} µs; " +
+            ", ".join(f"{t} {us:.1f}" for t, us in r["timings_us"].items()))
+        out[r["key"]] = {**r, "bound_us": b_ms * 1e3, "library_us": lib_us}
+    log(f"  17b tune of {len(results)} shapes: {wall:.1f} s")
+    return out
+
+
+def retime_with_table(torch, cfg, timer, gen) -> dict:
+    """17c: phase 3's grouped-GEMM rows (granite's decode gate|up and
+    down, prefill gate|up, dense, int8 and int4; Jamba's three; Kimi K2's
+    F block gate|up, dense and int8) timed under the committed table's
+    tiles and the default tiles, in turns (default, table, table,
+    default)."""
+    from repro_torch import configs
+    from repro_torch.kernels import grouped_gemm as gg
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import quant
+    from repro_torch.models.moe import sort_by_local_expert
+    E, D, F, k = cfg.n_experts, cfg.d_model, cfg.moe_d_ff, cfg.top_k
+    bf = torch.bfloat16
+    calls = {}
+    for label, tokens, part in (("decode", 8, "gate|up"),
+                                ("decode", 8, "down"),
+                                ("prefill", 64, "gate|up")):
+        sort_idx, sizes = routing(torch, tokens, E, k, gen)
+        kk, nn = (D, 2 * F) if part == "gate|up" else (F, D)
+        w = torch.randn((E, kk, nn), generator=gen, device="cuda").to(bf)
+        if part == "gate|up":
+            x = torch.randn((tokens, kk), generator=gen, device="cuda").to(bf)
+            kw = dict(row_index=sort_idx // k)
+        else:
+            x = torch.randn((tokens * k, kk), generator=gen,
+                            device="cuda").to(bf)
+            kw = dict(out_index=sort_idx, out_rows=tokens * k)
+        calls[f"granite {label} {part}"] = (x, w, sizes, None, kw)
+        for mode in ("int8", "int4"):
+            codes, scales = quantize(torch, mode, w)
+            calls[f"granite {mode} {label} {part}"] = (x, codes, sizes,
+                                                       scales, kw)
+    jcfg = jamba_cfg()
+    for label, tokens, part in (("decode", 4, "gate|up"),
+                                ("decode", 4, "down"),
+                                ("prefill", 64, "gate|up")):
+        jk = jcfg.top_k
+        sort_idx, sizes = routing(torch, tokens, jcfg.n_experts, jk, gen)
+        kk, nn = ((jcfg.d_model, 2 * jcfg.moe_d_ff) if part == "gate|up"
+                  else (jcfg.moe_d_ff, jcfg.d_model))
+        w = torch.randn((jcfg.n_experts, kk, nn), generator=gen,
+                        device="cuda", dtype=bf)
+        if part == "gate|up":
+            x = torch.randn((tokens, kk), generator=gen, device="cuda").to(bf)
+            kw = dict(row_index=sort_idx // jk)
+        else:
+            x = torch.randn((tokens * jk, kk), generator=gen,
+                            device="cuda").to(bf)
+            kw = dict(out_index=sort_idx, out_rows=tokens * jk)
+        calls[f"Jamba {label} {part}"] = (x, w, sizes, None, kw)
+    kimi = configs.get_config(KIMI)
+    tokens, e_loc = KIMI_F_BLOCK
+    topi = torch.topk(torch.rand((tokens, kimi.n_experts), generator=gen,
+                                 device="cuda"), kimi.top_k, dim=-1).indices
+    sort_idx, sizes = sort_by_local_expert(topi, 0, e_loc)
+    x = torch.randn((tokens, kimi.d_model), generator=gen,
+                    device="cuda").to(bf)
+    w = torch.randn((e_loc, kimi.d_model, 2 * kimi.moe_d_ff), generator=gen,
+                    device="cuda").to(bf)
+    kw = dict(row_index=sort_idx // kimi.top_k)
+    calls["Kimi K2 F block dense gate|up"] = (x, w, sizes, None, kw)
+    codes, scales = quant.quantize_experts(w)
+    calls["Kimi K2 F block int8 gate|up"] = (x, codes, sizes, scales, kw)
+    rows = {}
+    for name, (x, w, sizes, sc, kw) in calls.items():
+        table = ops.gemm_tiles(x, w, kw.get("row_index"), sc)
+        run = {t: (lambda t=t: gg.grouped_gemm(x, w, sizes, scales=sc,
+                                               tiles=t, **kw))
+               for t in {gg.DEFAULT_TILING, table}}
+        times = {t: [] for t in run}
+        for t in (gg.DEFAULT_TILING, table, table, gg.DEFAULT_TILING):
+            times[t].append(timer(run[t]))
+        ms = {t: min(v) for t, v in times.items()}
+        rows[name] = {"tiles": list(table), "ms": ms[table],
+                      "default_ms": ms[gg.DEFAULT_TILING]}
+        log(f"  17c {name}: table tiles {table} {ms[table]:.4f} ms, default "
+            f"{gg.DEFAULT_TILING} {ms[gg.DEFAULT_TILING]:.4f} ms")
+    return rows
+
+
+def autotuner(torch, cfg) -> dict:
+    """Phase 17: 17a the tilings' bit identity, 17b ``tune`` on the
+    default shapes into a temporary table, 17c phase 3's GEMM rows under
+    the committed table's tiles beside the default's."""
+    import tempfile
+    t0 = time.perf_counter()
+    calls = tiling_bit_identity(torch, cfg, seeded(torch, 40))
+    with tempfile.TemporaryDirectory() as tmp:
+        tuned = tune_logged(torch, os.path.join(tmp, "table.json"))
+    timer = Timer(torch)
+    retimed = retime_with_table(torch, cfg, timer, seeded(torch, 41))
+    del timer
+    _free(torch)
+    out = {"bit_identity_calls": calls, "tuned": tuned, "retimed": retimed,
+           "phase_s": time.perf_counter() - t0}
+    log(f"  phase 17 {out['phase_s']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 18: the multi-pod dry-run
+# ---------------------------------------------------------------------------
+
+# 18a: the sharded train step at full width on 2 of granite's layers,
+# float32, 8 sequences of 128 tokens; 18b: one decode cell (8 sequences,
+# a 4096-slot cache, the split-KV override's smallest T)
+DRYRUN_LAYERS = 2
+DRYRUN_TRAIN_BATCH = (8, 128)
+DRYRUN_DECODE = (8, 4096)
+# 18c: report.pick_hillclimb's three picks of the CPU sweep (python -m
+# repro_torch.launch.dryrun --mesh both; PERF.md §6), two distinct cells:
+# worst roofline fraction and most collective-bound, paper-representative
+HILLCLIMB = (("h2o-danube-1.8b", "long_500k"),
+             ("kimi-k2-1t-a32b", "decode_32k"))
+
+
+def _equal_trees(torch, a, b) -> list:
+    """Indices of the leaves of two trees that are not bit-identical
+    (DTensors compared by their full tensors)."""
+    from repro_torch.models.common import tree_leaves
+    full = lambda t: t.full_tensor() if hasattr(t, "full_tensor") else t  # noqa: E731
+    return [i for i, (x, y) in enumerate(zip(tree_leaves(a), tree_leaves(b)))
+            if not torch.equal(full(x), full(y))]
+
+
+def sharded_step_world1(torch, mesh) -> dict:
+    """18a: ``distributed_train_step`` on DTensors over the (1, 1) NCCL
+    mesh against ``build_step_fn`` on plain tensors with the same EP hook,
+    granite-moe at full width cut to 2 layers, float32, deterministic
+    algorithms: the loss, the gradient norm and every new parameter and
+    state leaf bit-identical."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    from repro_torch.models.params import init_params
+    from repro_torch.parallel import ep as ep_mod
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.training import optimizer as topt
+    from repro_torch.training.train import (build_step_fn,
+                                            distributed_train_step,
+                                            train_state_shardings)
+    cfg = dataclasses.replace(get_config("granite-moe-1b-a400m"),
+                              n_layers=DRYRUN_LAYERS, dtype="float32",
+                              param_dtype="float32")
+    model = Model(cfg, device="cuda")
+    params = init_params(cfg, seed=0, device="cuda")
+    opt = topt.adamw()
+    state = opt.init(params)
+    gen = seeded(torch, 50)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, DRYRUN_TRAIN_BATCH,
+                                     generator=gen, device="cuda")}
+    epc = ep_mod.EPConfig(mesh=mesh, capacity_factor=1.25)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        t0 = time.perf_counter()
+        with ep_mod.activate(epc):
+            p1, s1, m1 = build_step_fn(model, opt)(params, state, batch)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        specs = train_state_shardings(params, state, batch, mesh)
+        placed = [shd.distribute_tree(t, sp, mesh)
+                  for t, sp in zip((params, state, batch), specs)]
+        t0 = time.perf_counter()
+        p2, s2, m2 = distributed_train_step(model, opt, mesh, ep=epc)(*placed)
+        torch.cuda.synchronize()
+        dt_s = time.perf_counter() - t0
+    finally:
+        torch.use_deterministic_algorithms(False)
+    metrics = {k: (float(m1[k]), float(m2[k].full_tensor()))
+               for k in ("loss", "grad_norm")}
+    bad = _equal_trees(torch, p1, p2) + _equal_trees(torch, s1, s2)
+    log(f"  18a sharded step vs build_step_fn (granite {DRYRUN_LAYERS} "
+        f"layers, float32, batch {DRYRUN_TRAIN_BATCH}): loss, grad norm "
+        f"{metrics}; {len(bad)} leaves differ; plain {plain_s:.3f} s, "
+        f"DTensor {dt_s:.3f} s (first call each)")
+    if bad or any(a != b for a, b in metrics.values()):
+        raise AssertionError(f"the sharded step is not bit-identical to "
+                             f"build_step_fn: leaves {bad[:8]}, {metrics}")
+    return {"metrics": metrics, "plain_s": plain_s, "dtensor_s": dt_s}
+
+
+def decode_cell_world1(torch, mesh) -> dict:
+    """18b: one decode cell's program, granite-moe at full width (24
+    layers, bf16) on DTensors over the (1, 1) mesh with the split-KV
+    override (``dryrun._install_splitkv``) and the DTensor EP hook, against
+    ``Model.decode_step`` on the kernels: logits and the written cache
+    bit-identical; the split-KV and grouped-GEMM kernels launched."""
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun as dr
+    from repro_torch.launch import shapes as shp
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models.model import Model
+    from repro_torch.models.params import init_params
+    from repro_torch.parallel import ep as ep_mod
+    from repro_torch.parallel import sharding as shd
+    cfg = get_config("granite-moe-1b-a400m")
+    b, t = DRYRUN_DECODE
+    model = Model(cfg, device="cuda")
+    params = init_params(cfg, seed=0, device="cuda")
+    gen = seeded(torch, 51)
+    cache = model.init_cache(b, t)
+    for lc in cache["layers"]:
+        for name in ("k", "v"):
+            lc[name].copy_(torch.randn(lc[name].shape, generator=gen,
+                                       device="cuda"))
+    cache["pos"] = torch.randint(1, t - 1, (b,), generator=gen,
+                                 device="cuda", dtype=torch.int32)
+    tokens = torch.randint(0, cfg.vocab_size, (b,), generator=gen,
+                           device="cuda")
+    specs = shd.cache_shardings(cache, mesh, shd.SERVE_RULES, cfg)
+    placed = (shd.distribute_tree(params, shd.params_shardings(
+        params, mesh, shd.SERVE_RULES), mesh),
+        shd.distribute_tree(cache, specs, mesh),
+        shd.distribute(tokens, (None,), mesh))
+    plain_cache = {"layers": [{k: v.clone() for k, v in lc.items()}
+                              for lc in cache["layers"]],
+                   "pos": cache["pos"].clone()}
+    (want, want_cache), plain_launches = _launches_of(
+        torch, lambda: model.decode_step(params, plain_cache, tokens))
+    epc = dr._ep_config(cfg, shp.SHAPES["decode_32k"], mesh)
+
+    def sharded():
+        with implicit_replication(), ep_mod.activate_dtensor(epc):
+            dr._install_splitkv(mesh, cfg)
+            try:
+                return model.decode_step(*placed)
+            finally:
+                attn_mod.set_decode_attention_override(None)
+    (got, got_cache), launches = _launches_of(torch, sharded)
+    bad = _equal_trees(torch, want_cache["layers"], got_cache["layers"])
+    same = torch.equal(want, got.full_tensor())
+    log(f"  18b decode cell (granite, {cfg.n_layers} layers, bf16, B {b}, "
+        f"T {t}) on DTensors with the split-KV override vs the kernel path: "
+        f"logits bit-identical {same}, cache leaves differing {len(bad)}; "
+        f"launches {launches} (kernel path {plain_launches})")
+    if not same or bad:
+        raise AssertionError("the decode cell's sharded program is not "
+                             "bit-identical to the kernel path")
+    if not (launches["splitkv_attention"] and launches["grouped_gemm"]):
+        raise AssertionError(f"the decode cell ran no kernel: {launches}")
+    return {"launches": launches}
+
+
+def hillclimb_pricing() -> dict:
+    """18c: ``dryrun.lower_cell`` on ``HILLCLIMB`` (single pod), priced on
+    TPU v5e and on the H100, in this process on the host."""
+    from repro_torch.launch import dryrun as dr
+    out = {}
+    for arch, shape in HILLCLIMB:
+        for hw in ("TPUv5e", "H100"):
+            rec = dr.lower_cell(arch, shape, False, hardware=hw)
+            r, m = rec["roofline"], rec["memory"]
+            log(f"  18c {arch}|{shape}|single on {hw}: price_s "
+                f"{rec['price_s']}, dominant {r['dominant']}, t_compute "
+                f"{r['t_compute']:.4e} t_memory {r['t_memory']:.4e} "
+                f"t_collective {r['t_collective']:.4e} s, peak "
+                f"{m['peak_bytes_dev'] / 1e9:.2f} GB, bounded "
+                f"{rec['bounded']}, replicated {rec['replicated']}")
+            log("  18c record " + json.dumps(rec))
+            if rec["status"] != "ok":
+                raise AssertionError(f"{arch}|{shape} priced {rec}")
+            out[(arch, shape, hw)] = rec
+    return out
+
+
+def multipod_dryrun(torch) -> dict:
+    """Phase 18: 18a and 18b under one NCCL rank, then 18c with no
+    process group left."""
+    t0 = time.perf_counter()
+    _free(torch)
+    with nccl_world1(torch) as mesh:
+        step = sharded_step_world1(torch, mesh)
+        _free(torch)
+        decode = decode_cell_world1(torch, mesh)
+    _free(torch)
+    priced = hillclimb_pricing()
+    out = {"step": step, "decode": decode, "priced": priced,
+           "phase_s": time.perf_counter() - t0}
+    log(f"  phase 18 {out['phase_s']:.1f} s")
+    return out
+
+
 def _steady_engine(cfg, params, warm_ticks: int):
     """16 requests of 256 prompt tokens arrive at once; after
     ``warm_ticks`` ticks the engine interleaves one 64-token prefill chunk
@@ -3799,6 +4232,12 @@ def main() -> int:
     log("[15] the AFD dry-run: Kimi K2's role programs per device, priced "
         "on the host and measured on the card")
     afd = afd_dryrun_phase(torch, card)
+    log("[17] the grouped GEMM's tilings and the autotuner: bit identity, "
+        "tune, phase 3's rows under the committed table")
+    tuned = autotuner(torch, cfg)
+    log("[18] the multi-pod dry-run: the sharded train step and a decode "
+        "cell under one NCCL rank, the hillclimb cells priced")
+    multipod_dryrun(torch)
     if args.profile:
         log("[16] profiled window of engine ticks")
         torch.cuda.empty_cache()
@@ -3815,6 +4254,14 @@ def main() -> int:
     measured["grouped_gemm_int8"] = {
         k: int8_row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                  "bound_by", "library_ms")}
+    # the grouped GEMM's rows name the tiling they ran with, and its time
+    # under the default tiling beside it (phase 17c)
+    retimed = tuned["retimed"]
+    for name, row in (("grouped_gemm", "granite decode gate|up"),
+                      ("grouped_gemm_int8", "Kimi K2 F block int8 gate|up"),
+                      ("grouped_gemm_int4", "granite int4 decode gate|up")):
+        measured[name]["tiles"] = retimed[row]["tiles"]
+        measured[name]["default_tiles_ms"] = retimed[row]["default_ms"]
     kernels = [{"name": name, "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/"
                           f"{SOURCES.get(name, name)}.cu",

@@ -13,6 +13,8 @@
         [--replicas 3 | --replica-shapes 2x2,1x4] [--router round-robin] \
         [--fail T:REPLICA[:FRAC]] [--no-rescale] [--device cuda|cpu] ...
     python -m repro_torch calibrate [--device cuda|cpu]
+    python -m repro_torch tune [--shape E:TPE:DMODEL:DFF ...] [--reps 2] \
+        [--out PATH] [--json]
     python -m repro_torch serve --arch qwen3-8b [--preset smoke|100m|full] \
         [--mode ep|afd] [--slots 4] [--requests 16] [--fail-at T] \
         [--device cuda|cpu] ...
@@ -49,6 +51,13 @@ one parameter tree on the device.
 ``calibrate`` runs ``repro_torch.provision.calibrate`` with the JAX
 package's defaults (the counterpart of ``python -m repro provision
 --calibrate``'s calibration) and prints its report as JSON.
+
+``tune`` times each candidate tiling of the grouped-GEMM kernel on the
+card (``repro_torch.kernels.autotune``) at each ``--shape`` and merges the
+winners into the table ``kernels.ops.grouped_gemm`` consults, as ``python
+-m repro tune`` does. It needs a card: without one it prints an error and
+exits 2 (there is no CPU mode, whose times would say nothing of the
+kernel).
 
 ``serve`` is ``repro_torch.launch.serve``, the counterpart of ``python -m
 repro.launch.serve`` with its flags: the single-program model behind the
@@ -627,6 +636,55 @@ def cmd_calibrate(args) -> int:
     return 0
 
 
+def _parse_tune_shapes(specs: Optional[List[str]]) -> List[tuple]:
+    """Parse repeated ``--shape E:TPE:DMODEL:DFF`` quads."""
+    shapes = []
+    for spec in specs or []:
+        parts = spec.split(":")
+        if len(parts) != 4:
+            raise ValueError(f"bad --shape {spec!r}; want E:TPE:DMODEL:DFF, "
+                             "e.g. --shape 8:16:256:512")
+        shapes.append(tuple(int(v) for v in parts))
+    return shapes
+
+
+# Default tune points: the port's own paths' expert GEMMs (E, tokens per
+# expert, K, N): granite-moe-1b-a400m's decode gate|up and down and its
+# prefill gate|up (8 sequences / a 64-token chunk x top-8 over 32
+# experts); Jamba's (16 experts, top-2) decode gate|up and down and
+# prefill gate|up; Kimi K2's AFD F block (6 local experts, 384 dispatched
+# rows) gate|up and down.
+DEFAULT_TUNE_SHAPES = [(32, 2, 1024, 1024), (32, 2, 512, 1024),
+                       (32, 16, 1024, 1024),
+                       (16, 1, 4096, 28672), (16, 1, 14336, 4096),
+                       (16, 8, 4096, 28672),
+                       (6, 64, 7168, 4096), (6, 64, 2048, 7168)]
+
+
+def cmd_tune(args) -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("error: tune times the grouped-GEMM kernel on a CUDA device "
+              "and none is available", file=sys.stderr)
+        return 2
+    from repro_torch.kernels import autotune
+    shapes = _parse_tune_shapes(args.shape) or DEFAULT_TUNE_SHAPES
+    t0 = time.perf_counter()
+    results = autotune.tune(shapes, reps=args.reps, path=args.out)
+    wall = time.perf_counter() - t0
+    path = args.out or autotune._TABLE_PATH
+    if args.json:
+        print(json.dumps({"results": results, "table": path,
+                          "wall_s": wall}, indent=2, sort_keys=True))
+        return 0
+    print(f"# tuned {len(results)} shape points in {wall:.1f}s → {path}")
+    print("key,best_tiles,best_us,candidates")
+    for r in results:
+        print(f"{r['key']},{r['best']},{r['timings_us'][r['best']]:.1f},"
+              f"{len(r['timings_us'])}")
+    return 0
+
+
 def _write_json(doc, path: Optional[str]) -> None:
     if not path:
         return
@@ -837,6 +895,22 @@ def build_parser(arch_choices: bool = True) -> argparse.ArgumentParser:
                     help="torch device (default cuda; cpu for the plain "
                          "PyTorch path)")
     ca.set_defaults(fn=cmd_calibrate)
+
+    tn = sub.add_parser(
+        "tune",
+        help="autotune grouped-GEMM block sizes on the card; persists the "
+             "table ops.grouped_gemm consults")
+    tn.add_argument("--shape", action="append", metavar="E:TPE:DMODEL:DFF",
+                    help="workload shape to tune (repeatable); default: "
+                         "the port's granite, Jamba and Kimi K2 expert "
+                         "GEMMs")
+    tn.add_argument("--reps", type=int, default=2,
+                    help="timed repetitions per candidate tiling")
+    tn.add_argument("--out", default=None, metavar="PATH",
+                    help="table file (default: the module-adjacent table "
+                         "src/repro_torch/kernels/autotune_table.json)")
+    tn.add_argument("--json", action="store_true")
+    tn.set_defaults(fn=cmd_tune)
 
     # parsed by repro_torch.launch.serve / .train themselves (see main)
     sub.add_parser("serve", add_help=False,

@@ -118,45 +118,69 @@ __device__ __forceinline__ void zero_surplus(T* out, const void* out_index,
 // bf16 activations: tensor cores
 // ---------------------------------------------------------------------------
 
-constexpr int MMA_THREADS = 128;  // 4 warps, 16 output columns each
-constexpr int BM = 64;            // rows per pass (four m16 sub-tiles)
-constexpr int BN = 64;            // output columns per block
-constexpr int BK = 32;            // reduction depth per stage
-constexpr int STAGES = 4;
-constexpr int A_PITCH = BK + 8;   // bf16 per A row (80 B: ldmatrix conflict-free)
-constexpr int B_PITCH = BN + 8;   // bf16 per dense weight row (144 B)
-constexpr int Q_PITCH = BN + 16;  // bytes per code row (80 B)
+// The tilings the bf16 kernel is built for, (BM, BN, BK): rows per pass,
+// output columns per block, reduction depth per stage. The first is the
+// default. Every tiling cuts only rows and columns: each output element
+// sums K in the same m16n8k16 steps in the same order, so all tilings give
+// the same bits. Shared with the Python wrapper (rt_grouped_gemm_tilings).
+#define GG_TILINGS(X) \
+  X(64, 64, 32)       \
+  X(16, 64, 64)       \
+  X(32, 64, 32)       \
+  X(16, 32, 64)       \
+  X(64, 32, 32)       \
+  X(128, 128, 32)
 
-__host__ __device__ constexpr int b_stage_bytes(int w) {
-  return w == W_DENSE ? BK * B_PITCH * 2 : w == W_INT8 ? BK * Q_PITCH
-                                                       : (BK / 2) * Q_PITCH;
-}
+// Static shared memory stays under the 48 KB a block gets without opting
+// in: the ring takes as many stages (2 to 4) as fit in RING_BYTES.
+constexpr int RING_BYTES = 45056;
+
+template <int BM_, int BN_, int BK_>
+struct Tile {
+  static constexpr int BM = BM_, BN = BN_, BK = BK_;
+  static_assert(BM % 16 == 0 && BN % 16 == 0 && BK % 16 == 0, "mma tiles");
+  static constexpr int THREADS = BN / 16 * 32;  // one warp per 16 columns
+  static constexpr int SUB = BM / 16;           // m16 sub-tiles per pass
+  static constexpr int A_PITCH = BK + 8;  // bf16 per A row (odd 16 B units:
+  static constexpr int B_PITCH = BN + 8;  // ldmatrix conflict-free)
+  static constexpr int Q_PITCH = BN + 16;  // bytes per code row
+  __host__ __device__ static constexpr int b_stage_bytes(int w) {
+    return w == W_DENSE ? BK * B_PITCH * 2 : w == W_INT8 ? BK * Q_PITCH
+                                                         : (BK / 2) * Q_PITCH;
+  }
+  static constexpr int stage_bytes = BM * A_PITCH * 2 + BK * B_PITCH * 2;
+  static constexpr int STAGES = RING_BYTES / stage_bytes >= 4   ? 4
+                                : RING_BYTES / stage_bytes >= 3 ? 3
+                                                                : 2;
+  static_assert(STAGES * stage_bytes <= RING_BYTES, "ring exceeds 48 KB");
+};
 
 // The warp's weight fragments for k rows kk..kk+15 of the stage and its 16
 // columns wn..wn+15: b[0], b[1] for columns wn..wn+7, b[2], b[3] for
 // wn+8..wn+15.
-template <int W>
+template <int W, typename T>
 __device__ __forceinline__ void load_b(uint32_t* b, const unsigned char* st,
                                        int kk, int wn, int lane) {
   if constexpr (W == W_DENSE) {
     const __nv_bfloat16* w = reinterpret_cast<const __nv_bfloat16*>(st);
-    ldmatrix_x4_trans(b, w + (kk + (lane & 15)) * B_PITCH + wn + (lane >> 4) * 8);
+    ldmatrix_x4_trans(b, w + (kk + (lane & 15)) * T::B_PITCH + wn + (lane >> 4) * 8);
   } else {
+    constexpr int QP = T::Q_PITCH;
     const signed char* q = reinterpret_cast<const signed char*>(st);
     const int t = lane & 3;
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
       const int n = wn + j * 8 + (lane >> 2);
       if constexpr (W == W_INT8) {
-        b[2 * j] = pack_bf16((float)q[(kk + 2 * t) * Q_PITCH + n],
-                             (float)q[(kk + 2 * t + 1) * Q_PITCH + n]);
-        b[2 * j + 1] = pack_bf16((float)q[(kk + 2 * t + 8) * Q_PITCH + n],
-                                 (float)q[(kk + 2 * t + 9) * Q_PITCH + n]);
+        b[2 * j] = pack_bf16((float)q[(kk + 2 * t) * QP + n],
+                             (float)q[(kk + 2 * t + 1) * QP + n]);
+        b[2 * j + 1] = pack_bf16((float)q[(kk + 2 * t + 8) * QP + n],
+                                 (float)q[(kk + 2 * t + 9) * QP + n]);
       } else {
         // packed row p holds k = 2p (low nibble) and 2p + 1 (high nibble)
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-          const int x = q[(kk / 2 + t + 4 * h) * Q_PITCH + n];
+          const int x = q[(kk / 2 + t + 4 * h) * QP + n];
           b[2 * j + h] = pack_bf16((float)(((x & 0xF) ^ 8) - 8),
                                    (float)((((x >> 4) & 0xF) ^ 8) - 8));
         }
@@ -165,9 +189,10 @@ __device__ __forceinline__ void load_b(uint32_t* b, const unsigned char* st,
   }
 }
 
-// (4 resident blocks per SM: ptxas may use up to 128 registers a thread)
-template <int W>
-__global__ void __launch_bounds__(MMA_THREADS, 4)
+// (512 threads per SM at the register cap: ptxas may use up to 128
+// registers a thread in every tiling)
+template <int W, typename T>
+__global__ void __launch_bounds__(T::THREADS, 512 / T::THREADS)
 grouped_gemm_mma_kernel(const __nv_bfloat16* __restrict__ lhs,
                         const void* __restrict__ rhs,
                         const float* __restrict__ scales,
@@ -177,18 +202,20 @@ grouped_gemm_mma_kernel(const __nv_bfloat16* __restrict__ lhs,
                         __nv_bfloat16* __restrict__ out, int m, int k_dim,
                         int n_dim, int groups, int lhs_rows, int out_rows,
                         int block_n, int a_vec) {
-  __shared__ __align__(128) __nv_bfloat16 a_s[STAGES][BM][A_PITCH];
-  __shared__ __align__(128) unsigned char b_s[STAGES][b_stage_bytes(W)];
+  constexpr int BM = T::BM, BN = T::BN, BK = T::BK, STAGES = T::STAGES;
+  constexpr int THREADS = T::THREADS, SUB = T::SUB;
+  __shared__ __align__(128) __nv_bfloat16 a_s[STAGES][BM][T::A_PITCH];
+  __shared__ __align__(128) unsigned char b_s[STAGES][T::b_stage_bytes(W)];
   __shared__ int src_s[BM], dst_s[BM];
 
   const int g = blockIdx.x, n0 = blockIdx.y * BN;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   int lo, total;
-  expert_range<MMA_THREADS>(group_sizes, g, groups, &lo, &total);
+  expert_range<THREADS>(group_sizes, g, groups, &lo, &total);
   if (g == 0 && total < m)
-    zero_surplus<__nv_bfloat16, MMA_THREADS>(out, out_index, idx64 & 2,
-                                             max(total, 0), m, out_rows, n0,
-                                             BN, n_dim);
+    zero_surplus<__nv_bfloat16, THREADS>(out, out_index, idx64 & 2,
+                                         max(total, 0), m, out_rows, n0, BN,
+                                         n_dim);
   const int hi = min(lo + group_sizes[g], m);
   lo = min(lo, m);
   if (lo >= hi) return;  // empty expert: no weight bytes move
@@ -204,7 +231,7 @@ grouped_gemm_mma_kernel(const __nv_bfloat16* __restrict__ lhs,
     const int cnt = min(BM, hi - p0);
     const int nsub = (cnt + 15) / 16;
     __syncthreads();  // the previous pass no longer reads src_s / dst_s
-    for (int i = tid; i < BM; i += MMA_THREADS) {
+    for (int i = tid; i < BM; i += THREADS) {
       int s = -1, d = -1;
       if (i < cnt) {
         const int r = p0 + i;
@@ -221,7 +248,7 @@ grouped_gemm_mma_kernel(const __nv_bfloat16* __restrict__ lhs,
     // weight tile (zero past K and N).
     auto issue = [&](int step) {
       const int st = step % STAGES, k0 = step * BK;
-      for (int c = tid; c < nsub * 16 * (BK / 8); c += MMA_THREADS) {
+      for (int c = tid; c < nsub * 16 * (BK / 8); c += THREADS) {
         const int row = c / (BK / 8), kc = (c % (BK / 8)) * 8, k = k0 + kc;
         const int src = src_s[row];
         __nv_bfloat16* dst = &a_s[st][row][kc];
@@ -236,29 +263,29 @@ grouped_gemm_mma_kernel(const __nv_bfloat16* __restrict__ lhs,
         }
       }
       if constexpr (W == W_DENSE) {
-        for (int c = tid; c < BK * (BN / 8); c += MMA_THREADS) {
+        for (int c = tid; c < BK * (BN / 8); c += THREADS) {
           const int kk = c / (BN / 8), nc = (c % (BN / 8)) * 8;
           const int k = k0 + kk, n = n0 + nc;
           const bool ok = k < k_dim && n < n_dim;
-          cp_async16(b_s[st] + (kk * B_PITCH + nc) * 2,
+          cp_async16(b_s[st] + (kk * T::B_PITCH + nc) * 2,
                      ok ? w + ((size_t)k * n_dim + n) * 2 : w, ok);
         }
       } else {
         constexpr int ROWS = W == W_INT8 ? BK : BK / 2;
         const int r0 = W == W_INT8 ? k0 : k0 / 2;
-        for (int c = tid; c < ROWS * (BN / 16); c += MMA_THREADS) {
+        for (int c = tid; c < ROWS * (BN / 16); c += THREADS) {
           const int rr = c / (BN / 16), nc = (c % (BN / 16)) * 16;
           const int r = r0 + rr, n = n0 + nc;
           const bool ok = r < (int)w_rows && n < n_dim;
-          cp_async16(b_s[st] + rr * Q_PITCH + nc,
+          cp_async16(b_s[st] + rr * T::Q_PITCH + nc,
                      ok ? w + (size_t)r * n_dim + n : w, ok);
         }
       }
     };
 
-    float acc[4][2][4];
+    float acc[SUB][2][4];
 #pragma unroll
-    for (int s = 0; s < 4; ++s)
+    for (int s = 0; s < SUB; ++s)
 #pragma unroll
       for (int j = 0; j < 2; ++j)
 #pragma unroll
@@ -278,9 +305,9 @@ grouped_gemm_mma_kernel(const __nv_bfloat16* __restrict__ lhs,
 #pragma unroll
       for (int kk = 0; kk < BK; kk += 16) {
         uint32_t b[4];
-        load_b<W>(b, b_s[st], kk, wn, lane);
+        load_b<W, T>(b, b_s[st], kk, wn, lane);
 #pragma unroll
-        for (int s = 0; s < 4; ++s) {
+        for (int s = 0; s < SUB; ++s) {
           if (s < nsub) {  // uniform across the block
             uint32_t a[4];
             ldmatrix_x4(a, &a_s[st][s * 16 + (lane & 15)][kk + (lane >> 4) * 8]);
@@ -307,7 +334,7 @@ grouped_gemm_mma_kernel(const __nv_bfloat16* __restrict__ lhs,
         s1 = scales[(size_t)g * n_blocks + (n + 1) / block_n];
       }
 #pragma unroll
-      for (int s = 0; s < 4; ++s) {
+      for (int s = 0; s < SUB; ++s) {
         if (s >= nsub) continue;
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
@@ -481,17 +508,38 @@ struct Args {
   int m, k_dim, n_dim, groups, lhs_rows, out_rows, block_n;
 };
 
+template <int W, typename T>
+void launch_mma(const Args& a, cudaStream_t s) {
+  const int a_vec = a.k_dim % 8 == 0 &&
+                    reinterpret_cast<uintptr_t>(a.lhs) % 16 == 0;
+  const dim3 grid(a.groups, (a.n_dim + T::BN - 1) / T::BN);
+  grouped_gemm_mma_kernel<W, T><<<grid, T::THREADS, 0, s>>>(
+      static_cast<const __nv_bfloat16*>(a.lhs), a.rhs, a.scales,
+      a.group_sizes, a.row_index, a.out_index, a.idx64,
+      static_cast<__nv_bfloat16*>(a.out), a.m, a.k_dim, a.n_dim, a.groups,
+      a.lhs_rows, a.out_rows, a.block_n, a_vec);
+}
+
+bool known_tiling(int tm, int tn, int tk) {
+#define GG_KNOWN(bm, bn, bk) \
+  if (tm == bm && tn == bn && tk == bk) return true;
+  GG_TILINGS(GG_KNOWN)
+#undef GG_KNOWN
+  return false;
+}
+
+// bf16 activations: the tensor-core kernel of tiling (tm, tn, tk); float32:
+// the CUDA-core kernel, whose tiling is fixed.
 template <int W>
-void launch(const Args& a, bool bf16, cudaStream_t s) {
+void launch(const Args& a, bool bf16, int tm, int tn, int tk, cudaStream_t s) {
   if (bf16) {
-    const int a_vec = a.k_dim % 8 == 0 &&
-                      reinterpret_cast<uintptr_t>(a.lhs) % 16 == 0;
-    const dim3 grid(a.groups, (a.n_dim + BN - 1) / BN);
-    grouped_gemm_mma_kernel<W><<<grid, MMA_THREADS, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(a.lhs), a.rhs, a.scales,
-        a.group_sizes, a.row_index, a.out_index, a.idx64,
-        static_cast<__nv_bfloat16*>(a.out), a.m, a.k_dim, a.n_dim, a.groups,
-        a.lhs_rows, a.out_rows, a.block_n, a_vec);
+#define GG_LAUNCH(bm, bn, bk)                          \
+  if (tm == bm && tn == bn && tk == bk) {              \
+    launch_mma<W, Tile<bm, bn, bk>>(a, s);             \
+    return;                                            \
+  }
+    GG_TILINGS(GG_LAUNCH)
+#undef GG_LAUNCH
   } else {
     const dim3 grid(a.groups, (a.n_dim + TN - 1) / TN);
     grouped_gemm_fma_kernel<W><<<grid, THREADS, 0, s>>>(
@@ -503,6 +551,23 @@ void launch(const Args& a, bool bf16, cudaStream_t s) {
 
 }  // namespace
 
+// The tilings (tile_m, tile_n, tile_k) the bf16 kernel is built for, the
+// default first: writes up to `cap` triples to `out` and returns how many
+// there are.
+extern "C" int rt_grouped_gemm_tilings(int* out, int cap) {
+  int n = 0;
+#define GG_LIST(bm, bn, bk)  \
+  if (n < cap) {             \
+    out[3 * n] = bm;         \
+    out[3 * n + 1] = bn;     \
+    out[3 * n + 2] = bk;     \
+  }                          \
+  ++n;
+  GG_TILINGS(GG_LIST)
+#undef GG_LIST
+  return n;
+}
+
 // rhs: dense (groups, k_dim, n_dim) of lhs's dtype, or int8 codes
 // (groups, k_dim, n_dim) with scales (groups,) (wmode 1), or packed int4
 // (groups, k_dim / 2, n_dim) with scales (groups, n_dim / block_n) (wmode 2);
@@ -512,6 +577,8 @@ void launch(const Args& a, bool bf16, cudaStream_t s) {
 // is set, or NULL; destinations distinct. The destinations of rows past
 // sum(group_sizes) get 0; rows of out that no row targets are left as they
 // are (the caller zero-fills out unless the destinations cover it).
+// (tile_m, tile_n, tile_k) must be one of GG_TILINGS, in every dtype (the
+// float32 kernel ignores it); any other is cudaErrorInvalidValue.
 // Returns the CUDA error code of the launch (0 = success).
 extern "C" int rt_grouped_gemm(const void* lhs, const void* rhs,
                                const float* scales, const int* group_sizes,
@@ -519,7 +586,10 @@ extern "C" int rt_grouped_gemm(const void* lhs, const void* rhs,
                                int idx64, void* out, int m, int k_dim,
                                int n_dim, int groups, int lhs_rows,
                                int out_rows, int dtype, int wmode, int block_n,
+                               int tile_m, int tile_n, int tile_k,
                                void* stream) {
+  if (!known_tiling(tile_m, tile_n, tile_k))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (m > 0 && groups > 0 && n_dim > 0) {
     if (wmode != W_DENSE && (scales == nullptr || n_dim % 16 != 0))
       return static_cast<int>(cudaErrorInvalidValue);
@@ -530,9 +600,9 @@ extern "C" int rt_grouped_gemm(const void* lhs, const void* rhs,
     const bool bf16 = dtype == RT_DTYPE_BF16;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     switch (wmode) {
-      case W_DENSE: launch<W_DENSE>(a, bf16, s); break;
-      case W_INT8: launch<W_INT8>(a, bf16, s); break;
-      case W_INT4: launch<W_INT4>(a, bf16, s); break;
+      case W_DENSE: launch<W_DENSE>(a, bf16, tile_m, tile_n, tile_k, s); break;
+      case W_INT8: launch<W_INT8>(a, bf16, tile_m, tile_n, tile_k, s); break;
+      case W_INT4: launch<W_INT4>(a, bf16, tile_m, tile_n, tile_k, s); break;
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
   }

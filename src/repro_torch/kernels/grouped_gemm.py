@@ -24,9 +24,18 @@ lhs's dtype.
 The quantization helpers (``kernels.quant``, re-exported here) use the JAX
 package's layout and rounding, so weights quantized there load unchanged.
 
+With bf16 activations the tiling (rows per pass, output columns per
+block, reduction depth per stage) is a choice among ``TILINGS``, the ones
+the kernel is built for (``GG_TILINGS`` in the source; the first is the
+default). They cut only rows and columns, never the order in which K is
+summed, so every tiling gives the same bits in every weight mode (the
+quantized modes scale per column in the epilogue). Float32 activations
+keep the CUDA-core kernel's own fixed tiling. Any other tiling is refused
+by the kernel (``cudaErrorInvalidValue``) and the wrapper raises.
+
 On a CPU tensor the wrapper returns the plain version
-(``ref.grouped_gemm_fused_ref`` / ``ref.grouped_gemm_quant_ref``); on a
-CUDA tensor it launches the kernel or raises.
+(``ref.grouped_gemm_fused_ref`` / ``ref.grouped_gemm_quant_ref``), which
+has no tiling; on a CUDA tensor it launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -52,6 +61,18 @@ _FN = None
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # weight modes of csrc/grouped_gemm.cu
 DENSE, INT8, INT4 = 0, 1, 2
+# (tile_m, tile_n, tile_k) of the bf16 kernel's instantiations, the default
+# first: GG_TILINGS in csrc/grouped_gemm.cu (``kernel_tilings`` reads them
+# back from the built library)
+TILINGS: Tuple[Tuple[int, int, int], ...] = (
+    (64, 64, 32),
+    (16, 64, 64),
+    (32, 64, 32),
+    (16, 32, 64),
+    (64, 32, 32),
+    (128, 128, 32),
+)
+DEFAULT_TILING = TILINGS[0]
 
 
 def _fn():
@@ -59,11 +80,21 @@ def _fn():
     if _FN is None:
         fn = _build.load("grouped_gemm").rt_grouped_gemm
         fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int]
-                       + [ctypes.c_void_p] + [ctypes.c_int] * 9
+                       + [ctypes.c_void_p] + [ctypes.c_int] * 12
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _FN = fn
     return _FN
+
+
+def kernel_tilings() -> Tuple[Tuple[int, int, int], ...]:
+    """The tilings the built library takes, as it lists them."""
+    fn = _build.load("grouped_gemm").rt_grouped_gemm_tilings
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    buf = (ctypes.c_int * (3 * 64))()
+    n = fn(ctypes.cast(buf, ctypes.c_void_p), 64)
+    return tuple(tuple(buf[3 * i:3 * i + 3]) for i in range(n))
 
 
 def _index(idx: torch.Tensor, m: int, name: str) -> torch.Tensor:
@@ -127,7 +158,10 @@ def grouped_gemm(lhs: torch.Tensor, rhs: torch.Tensor,
                  row_index: Optional[torch.Tensor] = None,
                  out_index: Optional[torch.Tensor] = None,
                  out_rows: Optional[int] = None,
-                 scales: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 scales: Optional[torch.Tensor] = None,
+                 tiles: Tuple[int, int, int] = DEFAULT_TILING) -> torch.Tensor:
+    """The kernel on CUDA tensors (the plain version on CPU tensors);
+    ``tiles`` is the bf16 kernel's (tile_m, tile_n, tile_k)."""
     if not lhs.is_cuda:
         return plain(lhs, rhs, group_sizes, row_index, out_index, out_rows,
                      scales)
@@ -172,8 +206,9 @@ def grouped_gemm(lhs: torch.Tensor, rhs: torch.Tensor,
                 None if ri is None else ri.data_ptr(),
                 None if oi is None else oi.data_ptr(), idx64, out.data_ptr(),
                 m, k, n, g, lhs.shape[0], n_out, _DTYPES[lhs.dtype], mode,
-                block_n, torch.cuda.current_stream(lhs.device).cuda_stream)
-    _build.check(err, "grouped_gemm")
+                block_n, *(int(t) for t in tiles),
+                torch.cuda.current_stream(lhs.device).cuda_stream)
+    _build.check(err, f"grouped_gemm (tiles {tuple(tiles)})")
     if mode == DENSE:
         launches += 1
     elif mode == INT8:

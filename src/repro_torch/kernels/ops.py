@@ -24,6 +24,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.kernels import autotune as _autotune
 from repro_torch.kernels import flash_prefill as _fp
 from repro_torch.kernels import grouped_gemm as _gg
 from repro_torch.kernels import ref as _ref
@@ -105,6 +106,43 @@ def flash_prefill_work(q: torch.Tensor, k: torch.Tensor,
     return 4 * b * keys * hq * d, nbytes
 
 
+def grouped_gemm_bound(lhs: torch.Tensor, rhs: torch.Tensor,
+                       group_sizes: torch.Tensor,
+                       row_index: Optional[torch.Tensor] = None,
+                       out_index: Optional[torch.Tensor] = None,
+                       out_rows: Optional[int] = None,
+                       scales: Optional[torch.Tensor] = None
+                       ) -> Tuple[int, int]:
+    """``grouped_gemm_work``'s bound on these shapes, read from the shapes
+    alone: every row routed, min(G, rows) experts visited."""
+    m = lhs.shape[0] if row_index is None else row_index.shape[0]
+    k, n = lhs.shape[1], rhs.shape[2]
+    expert = _bytes(rhs[0]) + (0 if scales is None else _bytes(scales[0]))
+    n_out = m if out_index is None or out_rows is None else int(out_rows)
+    nbytes = (_bytes(lhs, row_index, out_index, group_sizes)
+              + min(rhs.shape[0], m) * expert + n_out * n * lhs.element_size())
+    return 2 * m * k * n, nbytes
+
+
+def splitkv_bound(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  lengths: torch.Tensor, return_lse: bool = False
+                  ) -> Tuple[int, int]:
+    """``splitkv_work``'s bound on these shapes: every key live."""
+    b, hq, d = q.shape
+    t, hkv = k.shape[1], k.shape[2]
+    nbytes = (2 * _bytes(q) + 2 * b * t * hkv * d * k.element_size()
+              + _bytes(lengths) + (b * hq * 4 if return_lse else 0))
+    return 4 * b * t * hq * d, nbytes
+
+
+def bound_work(work):
+    """The shape-only bound of a ``*_work`` function that reads its
+    inputs' values (the grouped GEMM's group sizes, split-KV's lengths);
+    ``work`` itself where it reads shapes alone."""
+    return {grouped_gemm_work: grouped_gemm_bound,
+            splitkv_work: splitkv_bound}.get(work, work)
+
+
 def resolve_impl(impl: Optional[str], x: torch.Tensor) -> str:
     if impl is None:
         return "cuda" if x.is_cuda else "plain"
@@ -115,12 +153,48 @@ def resolve_impl(impl: Optional[str], x: torch.Tensor) -> str:
     return impl
 
 
+def gemm_tiles(lhs: torch.Tensor, rhs: torch.Tensor,
+               row_index: Optional[torch.Tensor] = None,
+               scales: Optional[torch.Tensor] = None,
+               tile_m: Optional[int] = None, tile_n: Optional[int] = None,
+               tile_k: Optional[int] = None) -> Tuple[int, int, int]:
+    """The grouped GEMM's bf16 tiling for a call: pinned tiles win, the
+    others come from the autotune table keyed as JAX keys it (E, rows /
+    E, N; rows = ``row_index``'s length when given). With int4 weights
+    the column tile must divide the quantization block: as JAX forces its
+    n-tile to the block, the port takes the widest built column tile of
+    the same (tile_m, tile_k) that divides it. A tiling the kernel is not
+    built for raises."""
+    m = lhs.shape[0] if row_index is None else row_index.shape[0]
+    at_m, at_n, at_k = _autotune.lookup(rhs.shape[0], m, rhs.shape[2])
+    tiles = (at_m if tile_m is None else int(tile_m),
+             at_n if tile_n is None else int(tile_n),
+             at_k if tile_k is None else int(tile_k))
+    if scales is not None and scales.ndim == 2:
+        block_n = rhs.shape[2] // scales.shape[1]
+        if block_n % tiles[1]:
+            fits = [t for t in _gg.TILINGS if t[0] == tiles[0]
+                    and t[2] == tiles[2] and block_n % t[1] == 0]
+            if not fits:
+                raise ValueError(
+                    f"no built tiling ({tiles[0]}, n, {tiles[2]}) has a "
+                    f"column tile dividing the int4 block of {block_n}; "
+                    f"built: {_gg.TILINGS}")
+            tiles = max(fits, key=lambda t: t[1])
+    if tiles not in _gg.TILINGS:
+        raise ValueError(f"the grouped GEMM is not built for tiles {tiles}; "
+                         f"built: {_gg.TILINGS}")
+    return tiles
+
+
 def grouped_gemm(lhs: torch.Tensor, rhs: torch.Tensor,
                  group_sizes: torch.Tensor, impl: Optional[str] = None,
+                 tile_m: Optional[int] = None, tile_n: Optional[int] = None,
+                 tile_k: Optional[int] = None,
+                 scales: Optional[torch.Tensor] = None,
                  row_index: Optional[torch.Tensor] = None,
                  out_index: Optional[torch.Tensor] = None,
-                 out_rows: Optional[int] = None,
-                 scales: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 out_rows: Optional[int] = None) -> torch.Tensor:
     """out[r] = lhs[r] @ rhs[group_of(r)] for group-sorted rows.
 
     lhs: (M, K); rhs: (G, K, N); group_sizes: (G,) summing to ≤ M
@@ -130,16 +204,25 @@ def grouped_gemm(lhs: torch.Tensor, rhs: torch.Tensor,
     quantized: (G,) for int8 codes (G, K, N), (G, N/block_n) for int4
     codes packed two per byte along K (G, K/2, N); the output then has
     lhs's dtype.
+
+    Unpinned tile sizes come from the autotune table keyed on (E,
+    tokens/expert, d_ff) (``gemm_tiles``; ``python -m repro_torch tune``
+    fills it). The table applies to the bf16 kernel; the float32 kernel
+    and the plain version have no tiling, and ignore it.
     """
+    kernel = resolve_impl(impl, lhs) == "cuda"
+    # the plain version has no tiling: only a pinned one is checked
+    tiles = gemm_tiles(lhs, rhs, row_index, scales if kernel else None,
+                       tile_m, tile_n, tile_k)
     with _UNOBSERVED if _OBSERVER is None else _OBSERVER.kernel(
             grouped_gemm_work, lhs, rhs, group_sizes, row_index, out_index,
             out_rows, scales):
-        if resolve_impl(impl, lhs) == "plain":
+        if not kernel:
             return _gg.plain(lhs, rhs, group_sizes, row_index, out_index,
                              out_rows, scales)
         return _gg.grouped_gemm(lhs, rhs, group_sizes, row_index=row_index,
                                 out_index=out_index, out_rows=out_rows,
-                                scales=scales)
+                                scales=scales, tiles=tiles)
 
 
 def splitkv_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -21,7 +21,21 @@ port compiles nothing: it runs one rank's program eagerly inside
 and inside the three kernel ops (``kernels.ops``, whose work observer it
 is) the counter is suspended and the kernel's own work on these inputs is
 added instead (routed rows and visited experts, live keys), whichever
-version ran.
+version ran. On fake tensors, whose values do not exist, the work of the
+grouped GEMM and of split-KV is their bound on these shapes (every row
+routed, min(experts, rows) experts visited; every key live), and the
+counter names each kernel it bounded (``bounded``).
+
+A program on DTensors (the multi-pod dry-run) is counted on each rank's
+local ops: the counter lets DTensor unwrap its arguments and counts the
+local ops it runs (DTensor's global-shape sharding propagation is not
+counted), and records as collectives the functional collectives DTensor
+emits (``_c10d_functional`` all-gather, reduce-scatter, all-reduce,
+all-to-all) and the ``c10d`` collectives of the port's own
+``parallel.collectives``, each with its group's size.
+``PeakTracker`` follows the storages the program allocates to their
+release and keeps the peak of their live bytes: the dry-run's memory
+figure, which needs no allocation on fake tensors.
 
 From a collective's result bytes R and group size S, as in JAX:
 
@@ -51,7 +65,8 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Dict, Iterable, Tuple
+import weakref
+from typing import Dict, Iterable, Optional, Tuple
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -74,6 +89,75 @@ _DTYPE_BYTES = {
 # ops that read only the rows their indices select
 _GATHERS = (torch.ops.aten.index, torch.ops.aten.index_select,
             torch.ops.aten.gather, torch.ops.aten.embedding)
+# allocations: no bytes move
+_FACTORIES = ("empty", "empty_strided", "empty_like", "new_empty",
+              "new_empty_strided")
+# fills shaped like a template tensor: write their output, read nothing
+_TEMPLATED = ("zeros_like", "ones_like", "full_like", "new_zeros",
+              "new_ones", "new_full")
+
+# collectives by op name: (functional form, result is the op's output;
+# c10d in-place form, result is its first argument)
+_FUNCTIONAL = {"all_gather_into_tensor": "all-gather",
+               "reduce_scatter_tensor": "reduce-scatter",
+               "all_reduce": "all-reduce",
+               "all_to_all_single": "all-to-all"}
+_C10D = {"allreduce_": "all-reduce", "allgather_": "all-gather",
+         "_allgather_base_": "all-gather",
+         "allgather_into_tensor_coalesced_": "all-gather",
+         "reduce_scatter_": "reduce-scatter",
+         "_reduce_scatter_base_": "reduce-scatter",
+         "alltoall_base_": "all-to-all", "alltoall_": "all-to-all"}
+
+
+# the wait of a functional collective returns its result again
+_WAIT = torch.ops._c10d_functional.wait_tensor.default
+
+
+def _dtensor_type():
+    from torch.distributed.tensor import DTensor
+    return DTensor
+
+
+def _collective(func, args, out) -> Optional[Tuple[str, int, int]]:
+    """(kind, result bytes, group size) of a collective op, else None."""
+    ns, name = func.namespace, func._overloadpacket.__name__
+    if ns == "_c10d_functional" and name in _FUNCTIONAL:
+        from torch.distributed.distributed_c10d import _resolve_process_group
+        group = _resolve_process_group(args[-1])
+        return _FUNCTIONAL[name], _nbytes(out), group.size()
+    if ns == "c10d" and name in _C10D:
+        import torch.distributed as dist
+        i = [a.name for a in func._schema.arguments].index("process_group")
+        group = args[i]
+        if not isinstance(group, dist.ProcessGroup):
+            group = dist.ProcessGroup.unbox(group)
+        return _C10D[name], _nbytes(args[0]), group.size()
+    return None
+
+
+@contextlib.contextmanager
+def _unseen_propagation(mode):
+    """DTensor's sharding propagation runs each op once more on fake
+    tensors of the global shapes, to learn its output's shape: neither
+    the rank's work nor its memory, so ``mode`` (a counter or a tracker)
+    is suspended there."""
+    from torch.distributed.tensor._sharding_prop import ShardingPropagator
+    # the uncached form where this torch has one (the cached one calls it)
+    name = next(n for n in ("_propagate_tensor_meta_non_cached",
+                            "_propagate_tensor_meta")
+                if hasattr(ShardingPropagator, n))
+    original = getattr(ShardingPropagator, name)
+
+    def propagate(self, op_schema):
+        with mode.suspended():
+            return original(self, op_schema)
+
+    setattr(ShardingPropagator, name, propagate)
+    try:
+        yield
+    finally:
+        setattr(ShardingPropagator, name, original)
 
 @dataclasses.dataclass(frozen=True)
 class Pricing:
@@ -177,7 +261,9 @@ class CostCounter(TorchDispatchMode):
         self.flops = 0
         self.bytes = 0
         self.collectives = []          # (kind, result bytes, group size)
+        self.bounded = set()           # kernels priced by their bound
         self._paused = 0
+        self._dtensor = _dtensor_type()
 
     @property
     def cost(self) -> Dict[str, float]:
@@ -198,15 +284,28 @@ class CostCounter(TorchDispatchMode):
     @contextlib.contextmanager
     def kernel(self, work, *inputs):
         """A kernel op (``kernels.ops``' work observer): its own work on
-        ``inputs``, ``work(*inputs)``, in place of what its version does."""
+        ``inputs``, ``work(*inputs)``, in place of what its version does;
+        on fake tensors, its bound (``kops.bound_work``)."""
+        from torch._subclasses.fake_tensor import is_fake
         with self.suspended():
             yield
+            if any(is_fake(t) for t in _tensors(list(inputs))):
+                bound = kops.bound_work(work)
+                if bound is not work:
+                    self.bounded.add(work.__name__[:-len("_work")])
+                work = bound
             self.add(*work(*inputs))
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if any(issubclass(t, self._dtensor) for t in types):
+            return NotImplemented           # counted on the local ops
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
         if self._paused:
+            return out
+        coll = _collective(func, args, out)
+        if coll is not None:
+            self.collectives.append(coll)
             return out
         packet = func._overloadpacket
         if packet in flop_registry:
@@ -221,8 +320,12 @@ class CostCounter(TorchDispatchMode):
         aliases = [r.alias_info for r in schema.returns]
         if (aliases and all(a is not None and not a.is_write
                             for a in aliases)) or \
-                func._overloadpacket is torch.ops.aten._unsafe_view:
-            return 0                                    # a view
+                func._overloadpacket is torch.ops.aten._unsafe_view or \
+                func.namespace in ("prim", "_c10d_functional") or \
+                func._overloadpacket.__name__ in _FACTORIES:
+            return 0            # a view, an allocation, metadata, a wait
+        if func._overloadpacket.__name__ in _TEMPLATED:
+            return _nbytes(out)             # reads only the template's shape
         if func._overloadpacket in _GATHERS:
             index = [t for t in _tensors(args) if not t.is_floating_point()]
             return 2 * _nbytes(out) + _nbytes(index)
@@ -270,11 +373,70 @@ def count_cost():
     _OPEN = counter = CostCounter()
     previous = kops.set_work_observer(counter)
     try:
-        with counter:
+        with _unseen_propagation(counter), counter:
             yield counter
     finally:
         kops.set_work_observer(previous)
         _OPEN = None
+
+
+class PeakTracker(TorchDispatchMode):
+    """Peak live bytes of the storages the ops run under it allocate.
+
+    Each op's output storage is counted once, from the op that makes it
+    until Python releases it (a finalizer on the storage); views and
+    in-place results (outputs that alias an input) add nothing. Storages
+    made before the tracker opened (the program's arguments) are not
+    counted. Works on fake tensors, which have storages but no memory; on
+    DTensors it counts the local tensors."""
+
+    def __init__(self):
+        super().__init__()
+        self.live = 0
+        self.peak = 0
+        self._paused = 0
+        self._sizes: Dict[int, int] = {}
+        self._dtensor = _dtensor_type()
+
+    def _release(self, key: int) -> None:
+        self.live -= self._sizes.pop(key, 0)
+
+    @contextlib.contextmanager
+    def suspended(self):
+        self._paused += 1
+        try:
+            yield
+        finally:
+            self._paused -= 1
+
+    def __enter__(self):
+        self._unseen = _unseen_propagation(self)
+        self._unseen.__enter__()
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        try:
+            return super().__exit__(*exc)
+        finally:
+            self._unseen.__exit__(*exc)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if any(issubclass(t, self._dtensor) for t in types):
+            return NotImplemented
+        out = func(*args, **(kwargs or {}))
+        if self._paused or func is _WAIT or any(
+                r.alias_info is not None for r in func._schema.returns):
+            return out      # a view, an in-place result, a collective's wait
+        for t in _tensors(out):
+            st = t.untyped_storage()
+            key = st._cdata
+            if key in self._sizes or st.nbytes() == 0:
+                continue
+            self._sizes[key] = st.nbytes()
+            self.live += st.nbytes()
+            self.peak = max(self.peak, self.live)
+            weakref.finalize(st, self._release, key)
+        return out
 
 
 @dataclasses.dataclass(frozen=True)

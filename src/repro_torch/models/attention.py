@@ -20,6 +20,12 @@ The plain path (CPU tensors or ``impl="plain"``) is the dense masked form
 of the JAX package's default, so chunked prefill stays bit-exact against
 token-by-token decode on it.
 
+Two hooks the multi-pod dry-run sets, both off by default, as in JAX:
+``QK_F32_BARRIER`` casts Q and K to float32 before the score contraction,
+and ``set_decode_attention_override`` installs a decode-attention
+strategy (the split-KV decode over a sharded cache) that
+``attention_decode`` tries before its own.
+
 ``attention_prefill`` (the single-program model's full-sequence prefill)
 and ``cross_attention`` run no kernel: the JAX package computes both dense
 and masked, outside any Pallas call, and so does the port.
@@ -34,17 +40,41 @@ import torch
 
 from repro_torch.kernels import ops as kops
 from repro_torch.models import kvcache
-from repro_torch.models.common import ArchConfig
+from repro_torch.models.common import ArchConfig, gathered, is_dtensor
 from repro_torch.models.layers import apply_rope, rmsnorm_1d
 
 NEG_INF = -1e30
 
+# The dry-run's ``qkf32`` lever: cast Q/K to float32 *before* the score
+# contraction. In JAX the cast is a dtype barrier in the VJP that halves
+# the tensor-parallel activation-gradient bytes; in the port it changes
+# the scores' arithmetic (float32 products) and nothing else.
+QK_F32_BARRIER = False
+
+
+def _split_heads(t: torch.Tensor, n: int, d: int) -> torch.Tensor:
+    """(..., n·d) → (..., n, d). A DTensor whose last dim is split over a
+    mesh axis that does not divide the n heads is first gathered along
+    that axis: DTensor cannot cut a head across ranks (XLA pads)."""
+    if is_dtensor(t):
+        from torch.distributed.tensor import Replicate, Shard
+        mesh = t.device_mesh
+        pl = [Replicate() if isinstance(p, Shard) and p.dim == t.ndim - 1
+              and n % int(mesh.shape[i]) else p
+              for i, p in enumerate(t.placements)]
+        if pl != list(t.placements):
+            if t.requires_grad:     # its gradient back in its own placement
+                own = t.placements
+                t.register_hook(lambda g: g.redistribute(mesh, own))
+            t = t.redistribute(mesh, pl)
+    return t.reshape(*t.shape[:-1], n, d)
+
 
 def _project_q(params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
-    q = x @ params["wq"].to(x.dtype)
+    q = x @ gathered(params["wq"]).to(x.dtype)
     if "bq" in params:
         q = q + params["bq"].to(x.dtype)
-    q = q.reshape(*q.shape[:-1], cfg.n_heads, cfg.d_head)
+    q = _split_heads(q, cfg.n_heads, cfg.d_head)
     if "q_norm" in params:
         q = rmsnorm_1d(params["q_norm"], q, cfg.rms_eps)
     return q
@@ -52,13 +82,13 @@ def _project_q(params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
 
 def _project_kv(params, cfg: ArchConfig,
                 x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    k = x @ params["wk"].to(x.dtype)
-    v = x @ params["wv"].to(x.dtype)
+    k = x @ gathered(params["wk"]).to(x.dtype)
+    v = x @ gathered(params["wv"]).to(x.dtype)
     if "bk" in params:
         k = k + params["bk"].to(x.dtype)
         v = v + params["bv"].to(x.dtype)
-    k = k.reshape(*k.shape[:-1], cfg.n_kv_heads, cfg.d_head)
-    v = v.reshape(*v.shape[:-1], cfg.n_kv_heads, cfg.d_head)
+    k = _split_heads(k, cfg.n_kv_heads, cfg.d_head)
+    v = _split_heads(v, cfg.n_kv_heads, cfg.d_head)
     if "k_norm" in params:
         k = rmsnorm_1d(params["k_norm"], k, cfg.rms_eps)
     return k, v
@@ -73,9 +103,14 @@ def gqa_scores_softmax_out(cfg: ArchConfig, q: torch.Tensor, k: torch.Tensor,
     Scores are formed in the input dtype and softmaxed in float32; the
     probabilities are cast back before the value contraction, as in JAX.
     """
+    if is_dtensor(q):
+        return _local_core(cfg, q, k, v, mask)
     b, s, hq, d = q.shape
     hkv = k.shape[2]
     qg = q.reshape(b, s, hkv, hq // hkv, d)
+    if QK_F32_BARRIER:
+        qg = qg.float()
+        k = k.float()
     scores = torch.einsum("bskgd,btkd->bkgst", qg, k) * (1.0 / math.sqrt(d))
     scores = scores.float()
     if mask is not None:
@@ -85,8 +120,58 @@ def gqa_scores_softmax_out(cfg: ArchConfig, q: torch.Tensor, k: torch.Tensor,
     return out.reshape(b, s, hq * d)
 
 
+def _local_core(cfg: ArchConfig, q, k, v, mask):
+    """``gqa_scores_softmax_out`` on DTensors, run on each rank's block
+    (``collectives.spmd_map``): the batch split over the data-parallel
+    axes ("pod", "data") where it divides, the query heads over "model"
+    where they divide, the KV heads too where they divide, else whole on
+    every rank, which then takes the KV heads its query heads read (GQA);
+    the cache's T and the sequence whole. It is what XLA's partitioner
+    makes of JAX's ``shard(out, "batch", "seq", "heads")``. Heads that do
+    not divide stay whole (replicated) on every rank."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from repro_torch.parallel.collectives import spmd_map
+    mesh = q.device_mesh
+    names = list(mesh.mesh_dim_names)
+    sizes = dict(zip(names, (int(n) for n in mesh.shape)))
+    b, hq, hkv = q.shape[0], q.shape[2], k.shape[2]
+    g = hq // hkv
+    dp = [a for a in ("pod", "data") if a in sizes]
+    if b % math.prod(sizes[a] for a in dp):
+        dp = []
+    m = sizes.get("model", 1)
+    q_split = m > 1 and hq % m == 0 and (hq // m % g == 0 or g % (hq // m) == 0)
+    kv_split = q_split and hkv % m == 0
+
+    def pl(batch: bool, heads: bool):
+        out = [Replicate()] * len(names)
+        for a in dp if batch else ():
+            out[names.index(a)] = Shard(0)
+        if heads:
+            out[names.index("model")] = Shard(2)
+        return tuple(out)
+
+    def core(q_, k_, v_, m_=None):
+        if q_split and not kv_split:    # this rank's query heads' KV heads
+            hq_l = q_.shape[2]
+            lo = mesh.get_local_rank("model") * hq_l // g
+            n = max(hq_l // g, 1)
+            k_, v_ = k_[:, :, lo:lo + n], v_[:, :, lo:lo + n]
+        return (gqa_scores_softmax_out(cfg, q_, k_, v_, m_),)
+
+    args = [q, k, v]
+    in_pl = [pl(True, q_split), pl(True, kv_split), pl(True, kv_split)]
+    if mask is not None:
+        if not isinstance(mask, DTensor):
+            mask = DTensor.from_local(mask, mesh, pl(False, False),
+                                      run_check=False)
+        args.append(mask)
+        in_pl.append(pl(mask.shape[0] == b and b > 1, False))
+    return spmd_map(core, mesh, tuple(in_pl), (pl(True, q_split),))(*args)[0]
+
+
 def _output_proj(params, x_attn: torch.Tensor) -> torch.Tensor:
-    return x_attn @ params["wo"].to(x_attn.dtype)
+    return x_attn @ gathered(params["wo"]).to(x_attn.dtype)
 
 
 def causal_mask(cfg: ArchConfig, s: int, t: Optional[int] = None,
@@ -202,6 +287,18 @@ def attention_prefill_cached(params, cfg: ArchConfig, x: torch.Tensor,
     return _output_proj(params, out), cache
 
 
+# Optional decode-attention strategy (the dry-run's split-KV decode over a
+# cache whose T is sharded, ``launch.dryrun._install_splitkv``):
+# fn(cfg, q (B, 1, Hq, d), k, v, pos) -> (B, 1, Hq·d), or None where it
+# does not apply.
+_DECODE_OVERRIDE = None
+
+
+def set_decode_attention_override(fn) -> None:
+    global _DECODE_OVERRIDE
+    _DECODE_OVERRIDE = fn
+
+
 def attention_decode(params, cfg: ArchConfig, x: torch.Tensor,
                      cache: kvcache.Cache, pos: torch.Tensor,
                      impl: Optional[str] = None
@@ -215,6 +312,10 @@ def attention_decode(params, cfg: ArchConfig, x: torch.Tensor,
         q = apply_rope(q, pos[:, None], cfg.rope_theta)
         k_new = apply_rope(k_new, pos[:, None], cfg.rope_theta)
     cache = kvcache.write_kv(cfg, cache, k_new, v_new, pos)
+    if _DECODE_OVERRIDE is not None:
+        out = _DECODE_OVERRIDE(cfg, q, cache["k"], cache["v"], pos)
+        if out is not None:
+            return _output_proj(params, out), cache
     t = cache["k"].shape[1]
     if kops.resolve_impl(impl, x) == "cuda" and cfg.sliding_window is None:
         # the kernel clamps each length to [0, T] and reads pos's dtype

@@ -277,6 +277,28 @@ def embed_init(seed: int, name: str, shape: Sequence[int], dtype,
     return (x * 0.02).to(dtype)
 
 
+def is_dtensor(t) -> bool:
+    """Whether ``t`` is a DTensor (the sharded step's tensors)."""
+    from torch.distributed.tensor import DTensor
+    return isinstance(t, DTensor)
+
+
+def gathered(w: torch.Tensor) -> torch.Tensor:
+    """A weight as a layer uses it. On a DTensor (the sharded step), the
+    weight stored split over the data-parallel axes (FSDP) is all-gathered
+    over every mesh axis but "model", whose tensor-parallel split it keeps,
+    as XLA's partitioner does with JAX's FSDP weights. A plain tensor is
+    returned as it is."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if not isinstance(w, DTensor):
+        return w
+    names = w.device_mesh.mesh_dim_names
+    pl = [p if n == "model" else Replicate()
+          for n, p in zip(names, w.placements)]
+    return w if pl == list(w.placements) else w.redistribute(
+        w.device_mesh, pl)
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():

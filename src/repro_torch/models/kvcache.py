@@ -12,6 +12,10 @@ The writers update the cache tensors in place and return the same dict
 (the JAX versions return new arrays): a decode step then moves one row per
 sequence instead of copying the cache.
 
+On DTensor planes (the multi-pod dry-run's caches, split over batch and
+T) the writers write each rank's block in place: the new rows come whole
+along T, and each rank keeps the slots of its own T range.
+
 The whole-model cache of ``models.model`` is flat, one entry per layer:
 ``{"layers": [per-layer cache], "pos": (B,) int32}``, plus ``"cross_kv"``
 (one (k, v) per decoder layer, None for Mamba layers) for enc-dec archs.
@@ -25,7 +29,8 @@ from typing import Dict
 
 import torch
 
-from repro_torch.models.common import ArchConfig, LayerSpec, tree_bytes
+from repro_torch.models.common import (ArchConfig, LayerSpec, is_dtensor,
+                                       tree_bytes)
 
 Cache = Dict[str, torch.Tensor]
 
@@ -82,6 +87,10 @@ def write_kv(cfg: ArchConfig, cache: Cache, k_new: torch.Tensor,
     (no host sync), and each sequence writes one slot, so no index repeats.
     """
     t = cache["k"].shape[1]
+    if is_dtensor(cache["k"]):
+        for name, new in (("k", k_new), ("v", v_new)):
+            _write_step_local(cfg, cache[name], new, pos)
+        return cache
     slot = pos.long() % t if cfg.sliding_window is not None else pos.long()
     inside = (slot < t)[:, None, None]
     slot = slot.clamp(max=t - 1)
@@ -134,13 +143,73 @@ def write_kv_prefill(cfg: ArchConfig, cache: Cache, k: torch.Tensor,
     s = k.shape[1]
     for name, new in (("k", k), ("v", v)):
         plane = cache[name]
-        if cfg.sliding_window is not None and s > t:
+        if is_dtensor(plane):
+            _write_prefill_local(cfg, plane, new)
+        elif cfg.sliding_window is not None and s > t:
             slots = torch.arange(s - t, s, device=plane.device) % t
             plane[:, slots] = new[:, s - t:].to(plane.dtype)
         else:
             n = min(s, t)
             plane[:, :n] = new[:, :n].to(plane.dtype)
     return cache
+
+
+def _local_plane(plane, new, *rest):
+    """This rank's block of a DTensor cache plane (in place), its first
+    slot along T, and ``new`` and ``rest`` (per-sequence tensors such as
+    ``pos``) split over the batch as the plane is, whole along T."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = plane.device_mesh
+    local = plane.to_local()
+    t_loc, off = local.shape[1], 0
+    coords = mesh.get_coordinate()
+    for i, p in enumerate(plane.placements):
+        if isinstance(p, Shard) and p.dim == 1:
+            off = off * int(mesh.shape[i]) + coords[i]
+    off *= t_loc
+    rows = [Replicate() if isinstance(p, Shard) and p.dim == 1 else p
+            for p in plane.placements]
+    batch = [p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+             for p in plane.placements]
+
+    def place(x, pl):
+        if not is_dtensor(x):
+            from torch.distributed.tensor import DTensor
+            x = DTensor.from_local(x, mesh, [Replicate()] * len(pl),
+                                   run_check=False)
+        return x.redistribute(mesh, pl).to_local()
+
+    return (local, off, place(new, rows),
+            *(place(r, batch) for r in rest))
+
+
+def _write_step_local(cfg: ArchConfig, plane, new, pos) -> None:
+    """``write_kv`` of one plane on this rank's block."""
+    local, off, new_l, pos_l = _local_plane(plane, new, pos)
+    t, t_loc = plane.shape[1], local.shape[1]
+    slot = pos_l.long() % t if cfg.sliding_window is not None else pos_l.long()
+    slot = slot - off
+    inside = ((slot >= 0) & (slot < t_loc))[:, None, None]
+    slot = slot.clamp(0, t_loc - 1)
+    idx = torch.arange(local.shape[0], device=local.device)
+    local[idx, slot] = torch.where(inside, new_l[:, 0].to(local.dtype),
+                                   local[idx, slot])
+
+
+def _write_prefill_local(cfg: ArchConfig, plane, new) -> None:
+    """``write_kv_prefill`` of one plane on this rank's block: slot j holds
+    the segment's position j (full caches, j < S) or, for a ring shorter
+    than the segment, its last position p with p mod T = j."""
+    local, off, new_l = _local_plane(plane, new)
+    t, t_loc, s = plane.shape[1], local.shape[1], new_l.shape[1]
+    slots = torch.arange(off, off + t_loc, device=local.device)
+    if cfg.sliding_window is not None and s > t:
+        src = s - t + (slots - (s - t)) % t
+        local[:] = new_l[:, src].to(local.dtype)
+    else:
+        n = max(0, min(min(s, t) - off, t_loc))
+        if n:
+            local[:, :n] = new_l[:, off:off + n].to(local.dtype)
 
 
 def valid_mask(cfg: ArchConfig, cache_len: int,

@@ -11,7 +11,8 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import ArchConfig, dense_init, embed_init
+from repro_torch.models.common import (ArchConfig, dense_init, embed_init,
+                                       gathered)
 
 
 def init_norm(cfg: ArchConfig, device) -> Dict[str, torch.Tensor]:
@@ -98,13 +99,13 @@ def init_mlp(seed: int, name: str, cfg: ArchConfig, device,
 
 def apply_mlp(params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     """Gated MLP: fused [gate; up] projection, activation, down."""
-    h = x @ params["wi"].to(x.dtype)
+    h = x @ gathered(params["wi"]).to(x.dtype)
     if "bi" in params:
         h = activation(cfg, h + params["bi"].to(x.dtype))
     else:
         gate, up = h.chunk(2, dim=-1)
         h = activation(cfg, gate) * up
-    out = h @ params["wo"].to(x.dtype)
+    out = h @ gathered(params["wo"]).to(x.dtype)
     if "bo" in params:
         out = out + params["bo"].to(x.dtype)
     return out
@@ -123,12 +124,50 @@ def init_embedding(seed: int, cfg: ArchConfig,
     return p
 
 
+def lookup(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``table[idx]``. On a DTensor table (the sharded step) each rank
+    looks its indices up in its block (``collectives.spmd_map``): rows
+    split over "model" (the vocabulary) are taken where they are held and
+    summed over "model" (the vocab-parallel embedding), other rows are
+    read whole; the result is split over the batch as ``idx`` is.
+    DTensor's own indexing rules are not used: their backward fails on
+    some torch versions."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    if not isinstance(table, DTensor):
+        return table[idx]
+    from repro_torch.parallel import collectives as coll
+    mesh = table.device_mesh
+    names = list(mesh.mesh_dim_names)
+    split = "model" in names and isinstance(
+        table.placements[names.index("model")], Shard)
+    tab_pl = tuple(Shard(0) if split and n == "model" else Replicate()
+                   for n in names)
+    if not isinstance(idx, DTensor):
+        idx = DTensor.from_local(idx, mesh, [Replicate()] * len(names),
+                                 run_check=False)
+    idx_pl = tuple(p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+                   for p in idx.placements)
+
+    def local(tab, ix):
+        if not split:
+            return (tab[ix],)
+        v_l = tab.shape[0]
+        j = ix - mesh.get_local_rank("model") * v_l
+        rows = tab[j.clamp(0, v_l - 1)]
+        rows = torch.where(((j >= 0) & (j < v_l))[..., None], rows,
+                           torch.zeros_like(rows))
+        return (coll.all_reduce_sum(rows, mesh.get_group("model")),)
+
+    return coll.spmd_map(local, mesh, (tab_pl, idx_pl), (idx_pl,))(
+        table, idx)[0]
+
+
 def embed_tokens(params, cfg: ArchConfig, tokens: torch.Tensor,
                  positions: Optional[torch.Tensor] = None) -> torch.Tensor:
-    x = params["tok"][tokens.long()].to(cfg.compute_dtype)
+    x = lookup(params["tok"], tokens.long()).to(cfg.compute_dtype)
     if "pos" in params and positions is not None:
         cap = params["pos"].shape[0]
-        x = x + params["pos"][positions.long().clamp(0, cap - 1)].to(
+        x = x + lookup(params["pos"], positions.long().clamp(0, cap - 1)).to(
             cfg.compute_dtype)
     return x
 
@@ -149,4 +188,4 @@ def apply_lm_head(head_params, embed_params, cfg: ArchConfig,
     w = head_params.get("w")
     if w is None:
         w = embed_params["tok"].T
-    return (x @ w.to(x.dtype)).float()
+    return (x @ gathered(w).to(x.dtype)).float()

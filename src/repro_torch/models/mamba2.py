@@ -28,12 +28,13 @@ package has none for this layer.
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import ArchConfig, dense_init
+from repro_torch.models.common import ArchConfig, dense_init, gathered
 from repro_torch.models.layers import gated_rmsnorm
 
 
@@ -170,6 +171,58 @@ def ssd_sequential(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     return torch.stack(ys, dim=1).to(x.dtype), state
 
 
+def _on_blocks(fn):
+    """``fn(params, cfg, x, cache)`` on each rank's block when ``x`` is a
+    DTensor (``collectives.spmd_map``): the batch split as ``x`` is, the
+    weights and every head whole on each rank, and the new SSM state cut
+    back to the heads the cache's placement gives the rank. DTensor's
+    rules do not split the scan (its flattened batch and head dims give
+    placements its batched products fail on), so the heads are computed
+    whole: the ``replicated`` pieces of ``launch.dryrun``'s record."""
+    @functools.wraps(fn)
+    def wrapped(params, cfg: ArchConfig, x: torch.Tensor, cache=None):
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+        if not isinstance(x, DTensor):
+            return fn(params, cfg, x, cache)
+        from repro_torch.parallel.collectives import spmd_map
+        mesh = x.device_mesh
+        names = list(mesh.mesh_dim_names)
+        batch = tuple(p if isinstance(p, Shard) and p.dim == 0
+                      else Replicate() for p in x.placements)
+        whole = (Replicate(),) * len(names)
+        keys = sorted(params)
+        heads = [] if cache is None else [
+            i for i, p in enumerate(cache["state"].placements)
+            if isinstance(p, Shard) and p.dim == 1]
+
+        def local(x_l, *rest):
+            c = (None if cache is None else
+                 {"conv": rest[len(keys)], "state": rest[len(keys) + 1]})
+            out, new = fn(dict(zip(keys, rest[:len(keys)])), cfg, x_l, c)
+            if new is None:
+                return (out,)
+            st = new["state"]
+            for i in heads:         # this rank's heads, as the cache holds
+                h = st.shape[1] // int(mesh.shape[i])
+                st = st.narrow(1, mesh.get_local_rank(names[i]) * h, h)
+            return out, new["conv"], st
+
+        args = [x] + [params[k] for k in keys]
+        in_pl = [batch] + [whole] * len(keys)
+        out_pl = [batch]
+        if cache is not None:
+            args += [cache["conv"], cache["state"]]
+            in_pl += [batch, batch]
+            out_pl += [batch, tuple(Shard(1) if i in heads else p
+                                    for i, p in enumerate(batch))]
+        res = spmd_map(local, mesh, tuple(in_pl), tuple(out_pl))(*args)
+        if cache is None:
+            return res[0], None
+        return res[0], {"conv": res[1], "state": res[2]}
+    return wrapped
+
+
+@_on_blocks
 def mamba_prefill(params, cfg: ArchConfig, x: torch.Tensor,
                   cache: Optional[Dict[str, torch.Tensor]] = None
                   ) -> Tuple[torch.Tensor,
@@ -178,7 +231,7 @@ def mamba_prefill(params, cfg: ArchConfig, x: torch.Tensor,
     (B, S, D), with a cache: a new cache dict holding the conv tail and the
     final state; the input cache is not modified)."""
     bs, s, _ = x.shape
-    zxbcdt = x @ params["in_proj"].to(x.dtype)
+    zxbcdt = x @ gathered(params["in_proj"]).to(x.dtype)
     z, x_bc_raw, dt_raw = _split_proj(cfg, zxbcdt)
 
     x_bc = F.silu(causal_conv(cfg, x_bc_raw, params["conv_w"],
@@ -201,7 +254,7 @@ def mamba_prefill(params, cfg: ArchConfig, x: torch.Tensor,
                     * xheads[:, :s].to(y.dtype))
     y = gated_rmsnorm(params["norm"], y.reshape(bs, s, cfg.d_inner), z,
                       cfg.rms_eps)
-    out = y @ params["out_proj"].to(y.dtype)
+    out = y @ gathered(params["out_proj"]).to(y.dtype)
 
     if cache is None:
         return out, None
@@ -213,6 +266,7 @@ def mamba_prefill(params, cfg: ArchConfig, x: torch.Tensor,
                  "state": final_state}
 
 
+@_on_blocks
 def mamba_decode(params, cfg: ArchConfig, x: torch.Tensor,
                  cache: Dict[str, torch.Tensor]
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -220,7 +274,7 @@ def mamba_decode(params, cfg: ArchConfig, x: torch.Tensor,
     conv_dim), "state" (B, H, P, N) float32}. Returns (out (B, 1, D), a
     new cache dict; the input cache is not modified)."""
     bs = x.shape[0]
-    zxbcdt = x @ params["in_proj"].to(x.dtype)
+    zxbcdt = x @ gathered(params["in_proj"]).to(x.dtype)
     z, x_bc_raw, dt_raw = _split_proj(cfg, zxbcdt)
 
     # conv ring step
@@ -246,5 +300,5 @@ def mamba_decode(params, cfg: ArchConfig, x: torch.Tensor,
 
     y = gated_rmsnorm(params["norm"], y.reshape(bs, 1, cfg.d_inner), z,
                       cfg.rms_eps)
-    out = y @ params["out_proj"].to(y.dtype)
+    out = y @ gathered(params["out_proj"]).to(y.dtype)
     return out, {"conv": new_conv.to(cache["conv"].dtype), "state": state}

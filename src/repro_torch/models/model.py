@@ -45,6 +45,54 @@ def _positions(b: int, s: int, device) -> torch.Tensor:
     return torch.arange(s, device=device).expand(b, s)
 
 
+def token_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """-log softmax(logits)[label] per position, in float32: (B, S).
+
+    On DTensor logits (the sharded train step) each rank takes its block
+    (``collectives.spmd_map``): the batch as it is split, the vocabulary
+    split over "model" where it divides (else whole), and the softmax's
+    max, its normaliser and the label's logit combined over "model" by
+    collectives, so no rank holds the whole vocabulary's logits (the
+    vocab-parallel cross entropy)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    if not isinstance(logits, DTensor):
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        return -logp.gather(-1, labels[..., None])[..., 0]
+    import torch.distributed as dist
+    from repro_torch.parallel import collectives as coll
+    mesh = logits.device_mesh
+    names = list(mesh.mesh_dim_names)
+    m = int(mesh.shape[names.index("model")]) if "model" in names else 1
+    split = m > 1 and logits.shape[-1] % m == 0
+    batch = [p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+             for p in logits.placements]
+    lg_pl = [Shard(2) if split and n == "model" else p
+             for n, p in zip(names, batch)]
+    if not isinstance(labels, DTensor):
+        labels = DTensor.from_local(labels, mesh, [Replicate()] * len(names),
+                                    run_check=False)
+
+    def local(lg, lb):
+        if not split:                   # the whole vocabulary: as above
+            logp = torch.log_softmax(lg.float(), dim=-1)
+            return (-logp.gather(-1, lb[..., None])[..., 0],)
+        lg = lg.float()
+        mx = lg.amax(-1).detach()
+        group = mesh.get_group("model")
+        dist.all_reduce(mx, op=dist.ReduceOp.MAX, group=group)
+        v_l = lg.shape[-1]
+        idx = lb - mesh.get_local_rank("model") * v_l
+        inside = (idx >= 0) & (idx < v_l)
+        picked = lg.gather(-1, idx.clamp(0, v_l - 1)[..., None])[..., 0]
+        picked = torch.where(inside, picked, torch.zeros_like(picked))
+        se = coll.all_reduce_sum((lg - mx[..., None]).exp().sum(-1), group)
+        picked = coll.all_reduce_sum(picked, group)
+        return (mx + se.log() - picked,)
+
+    return coll.spmd_map(local, mesh, (tuple(lg_pl), tuple(batch)),
+                         (tuple(batch),))(logits, labels)[0]
+
+
 @dataclasses.dataclass(frozen=True)
 class Model:
     cfg: ArchConfig
@@ -111,8 +159,7 @@ class Model:
         if self.cfg.vision_seq and "patch_embeds" in batch:
             logits = logits[:, batch["patch_embeds"].shape[1]:]
         labels = tokens[:, 1:].long()
-        logp = torch.log_softmax(logits[:, :-1].float(), dim=-1)
-        nll = -logp.gather(-1, labels[..., None])[..., 0]
+        nll = token_nll(logits[:, :-1], labels)
         mask = torch.ones_like(nll)
         if "loss_mask" in batch:
             mask = batch["loss_mask"][:, 1:].float()
@@ -123,10 +170,13 @@ class Model:
     # ---- serving ------------------------------------------------------------
 
     @torch.no_grad()
-    def prefill(self, params, batch: Dict[str, torch.Tensor], max_len: int
+    def prefill(self, params, batch: Dict[str, torch.Tensor], max_len: int,
+                cache: Optional[Dict[str, object]] = None
                 ) -> Tuple[torch.Tensor, Dict[str, object]]:
         """Populate a fresh cache from the prompt; return the last
-        position's logits (B, V) and the cache."""
+        position's logits (B, V) and the cache. ``cache`` is the fresh
+        cache to fill (``init_cache(B, max_len)`` when None; the multi-pod
+        dry-run passes one placed on its mesh)."""
         b, s = batch["tokens"].shape
         x = self._embed(params, batch, _positions(b, s, self.device))
         s_total = x.shape[1]
@@ -134,8 +184,8 @@ class Model:
         x, cache, _ = transformer.stack_forward(
             params, self.cfg, x, mode="prefill",
             positions=_positions(b, s_total, self.device),
-            cache=self.init_cache(b, max_len), cross_kv=cross_kv,
-            impl=self.impl)
+            cache=self.init_cache(b, max_len) if cache is None else cache,
+            cross_kv=cross_kv, impl=self.impl)
         cache["pos"] = torch.full((b,), s_total, dtype=torch.int32,
                                   device=self.device)
         if cross_kv is not None:

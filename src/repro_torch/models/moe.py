@@ -73,6 +73,15 @@ def _expert_ffn(cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
     return activation(cfg, gate) * up
 
 
+def _counts(keys: torch.Tensor, n: int) -> torch.Tensor:
+    """(n,) int32 occurrences of each key in [0, n): a scatter-add into a
+    fixed-size vector, whose shape does not depend on the data (unlike
+    ``torch.bincount``'s), so it runs on fake tensors and needs no host
+    read of the largest key."""
+    return torch.zeros(n, dtype=torch.int32, device=keys.device).scatter_add_(
+        0, keys, torch.ones_like(keys, dtype=torch.int32))
+
+
 def sort_by_expert(topi: torch.Tensor, n_experts: int
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Flatten (N, k) expert ids into a group-sorted order.
@@ -84,7 +93,7 @@ def sort_by_expert(topi: torch.Tensor, n_experts: int
     flat = topi.reshape(-1).long()
     sort_idx = torch.argsort(flat, stable=True)
     inv_idx = torch.argsort(sort_idx, stable=True)
-    group_sizes = torch.bincount(flat, minlength=n_experts).to(torch.int32)
+    group_sizes = _counts(flat, n_experts)
     return sort_idx, inv_idx, group_sizes
 
 
@@ -99,8 +108,7 @@ def sort_by_local_expert(topi: torch.Tensor, first: int, n_local: int
     key = torch.where((key >= 0) & (key < n_local), key,
                       torch.full_like(key, n_local))
     sort_idx = torch.argsort(key, stable=True)
-    group_sizes = torch.bincount(key, minlength=n_local + 1)[:n_local]
-    return sort_idx, group_sizes.to(torch.int32)
+    return sort_idx, _counts(key, n_local + 1)[:n_local]
 
 
 # ---------------------------------------------------------------------------

@@ -39,6 +39,30 @@ def has_ffn(cfg: ArchConfig, spec: LayerSpec) -> bool:
     return spec.moe or cfg.d_ff > 0
 
 
+def _residual(x: torch.Tensor) -> torch.Tensor:
+    """The residual stream's placement on DTensors: the batch split as it
+    came (the data-parallel axes), every other dim whole on every rank. A
+    sum left partial over "model" by a row-split projection is all-reduced
+    here, as XLA's partitioner does after JAX's output projections; DTensor
+    would otherwise reduce-scatter it along the sequence, a placement its
+    matmul rules then fail on. The gradient gets the same placement.
+    Plain tensors pass unchanged."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    if not isinstance(x, DTensor):
+        return x
+
+    def canonical(t):
+        pl = [p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+              for p in t.placements]
+        return t if pl == list(t.placements) else t.redistribute(
+            t.device_mesh, pl)
+
+    x = canonical(x)
+    if x.requires_grad:         # and so is its gradient
+        x.register_hook(canonical)
+    return x
+
+
 def layer_forward(params, cfg: ArchConfig, spec: LayerSpec, x: torch.Tensor,
                   *, mode: str, positions: Optional[torch.Tensor] = None,
                   cache=None, pos: Optional[torch.Tensor] = None,
@@ -59,11 +83,12 @@ def layer_forward(params, cfg: ArchConfig, spec: LayerSpec, x: torch.Tensor,
         mix, new_cache = mamba2.mamba_decode(params["mamba"], cfg, h, cache)
     else:
         mix, new_cache = mamba2.mamba_prefill(params["mamba"], cfg, h, cache)
-    x = x + mix
+    x = _residual(x + mix)
 
     if spec.kind == "attn" and cfg.is_encdec and cross_kv is not None:
         h = apply_norm(params["ln_cross"], cfg, x)
-        x = x + attn.cross_attention(params["cross"], cfg, h, *cross_kv)
+        x = _residual(x + attn.cross_attention(params["cross"], cfg, h,
+                                               *cross_kv))
 
     if has_ffn(cfg, spec):
         h = apply_norm(params["ln2"], cfg, x)
@@ -74,7 +99,7 @@ def layer_forward(params, cfg: ArchConfig, spec: LayerSpec, x: torch.Tensor,
                 impl=impl)
         else:
             out = apply_mlp(params["mlp"], cfg, h)
-        x = x + out
+        x = _residual(x + out)
     return x, new_cache, aux
 
 
@@ -95,6 +120,7 @@ def stack_forward(params, cfg: ArchConfig, x: torch.Tensor, *, mode: str,
     if cfg.remat and mode == "train" and torch.is_grad_enabled():
         run = functools.partial(torch.utils.checkpoint.checkpoint,
                                 layer_forward, use_reentrant=False)
+    x = _residual(x)
     for i, spec in enumerate(cfg.layer_plan().flat()):
         x, nc, aux = run(
             params["layers"][i], cfg, spec, x, mode=mode,

@@ -13,10 +13,17 @@ all-gather is a reduce-scatter (here an all-reduce and this rank's
 slice), of a sum an all-reduce, and of an all-to-all the reverse
 all-to-all. The port keeps its own: the library's all-gather backward
 fails on a subgroup that does not hold global rank 0.
+
+``spmd_map`` runs such a rank-local function on DTensors (``local_map``)
+and reconciles the two conventions: an output replicated over n ranks
+has its gradient divided by n before the local backward, and an input
+replicated over an axis gets its gradient as a partial sum over that
+axis, so the local gradients become DTensor's gradients of the one loss.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional
 
 import torch
@@ -71,6 +78,52 @@ class _AllToAll(torch.autograd.Function):
         out = torch.empty_like(grad)
         dist.all_to_all_single(out, grad.contiguous(), group=ctx.group)
         return out, None
+
+
+class _ScaleGrad(torch.autograd.Function):
+    """Identity whose gradient is scaled and made contiguous: a local
+    gradient leaves ``local_map`` as a DTensor's local block, whose views
+    assume a contiguous layout."""
+
+    @staticmethod
+    def forward(ctx, x, scale):
+        ctx.scale = scale
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (grad * ctx.scale).contiguous(), None
+
+
+def spmd_map(fn, mesh, in_placements, out_placements):
+    """``local_map(fn)`` for a rank-local ``fn`` written with the port's
+    differentiable collectives (see the module's docstring). Inputs are
+    redistributed to ``in_placements``; each output's gradient is divided
+    by the number of ranks it is replicated over, and each input's
+    gradient is partial over the axes it is replicated over."""
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+    sizes = [int(n) for n in mesh.shape]
+
+    def replicas(pl) -> int:
+        return math.prod(n for p, n in zip(pl, sizes)
+                         if isinstance(p, Replicate))
+
+    def body(*args):
+        args = [_ScaleGrad.apply(a, 1.0) if isinstance(a, torch.Tensor)
+                and a.requires_grad else a for a in args]
+        outs = fn(*args)
+        return tuple(_ScaleGrad.apply(o, 1.0 / replicas(pl))
+                     if o.requires_grad else o
+                     for o, pl in zip(outs, out_placements))
+
+    grad_pl = tuple(None if pl is None else tuple(
+        Partial() if isinstance(p, Replicate) else p for p in pl)
+        for pl in in_placements)
+    return local_map(body, out_placements=tuple(out_placements),
+                     in_placements=tuple(in_placements),
+                     in_grad_placements=grad_pl, device_mesh=mesh,
+                     redistribute_inputs=True)
 
 
 def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:

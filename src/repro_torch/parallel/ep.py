@@ -29,11 +29,18 @@ gradient summed over that axis by the caller (the router over every
 axis, the experts over the data-parallel axes).
 
 Shared experts are not handled here — they stay on the dense path.
+
+On DTensors (``make_dtensor_ep_forward``, installed by
+``activate_dtensor``) the same rank-local forwards run through
+``collectives.spmd_map``, a ``local_map`` that turns the local
+collectives' "sum of the ranks' losses" gradients into DTensor's
+gradients of the one loss.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -323,6 +330,81 @@ def make_ep_forward(ep: EPConfig):
         return moe_ep_decode(params, cfg, x, epc), _zeros_aux(x)
 
     return forward
+
+
+# ---------------------------------------------------------------------------
+# DTensor front
+# ---------------------------------------------------------------------------
+
+def make_dtensor_ep_forward(ep: EPConfig):
+    """The MoE strategy hook on DTensor activations: ``make_ep_forward``'s
+    rank-local forward through ``spmd_map``. The batch is split over the
+    data-parallel axes (replicated where it does not divide), the experts
+    over the EP axis (replicated where they do not divide: the local
+    fallback then averages its aux loss over every axis), the router
+    replicated; the ETP decode keeps each expert's D split over its axis
+    and the activations whole. The shared experts run outside, on the
+    DTensor path.
+    Plain-tensor activations take the rank-local hook."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.parallel.sharding import placements
+    local = make_ep_forward(ep)
+    mesh = ep.mesh
+    names = tuple(mesh.mesh_dim_names)
+    sizes = axis_sizes(mesh)
+
+    def forward(params, cfg: ArchConfig, x: torch.Tensor, mode: str,
+                impl: Optional[str] = None):
+        if not isinstance(x, DTensor):
+            return local(params, cfg, x, mode, impl)
+        dp = ep.present_dp_axes
+        split = cfg.n_experts % ep.ep_size == 0
+        # the weight-stationary decode keeps each expert's D split over the
+        # ETP axis and takes the activations whole
+        etp = (split and mode != "train" and ep.etp
+               and cfg.d_model % sizes.get(ep.etp_axis, 1) == 0)
+        if etp or x.shape[0] % math.prod(sizes[a] for a in dp):
+            dp = ()
+        x_pl = placements(((dp if len(dp) > 1 else dp[0]) if dp else None,)
+                          + (None,) * (x.ndim - 1), mesh)
+        keys = sorted(k for k in params if k != "shared")
+        expert_axis = ep.ep_axis if split else None
+        d_axis = ep.etp_axis if etp and ep.etp_axis in sizes else None
+        w_specs = {"wi": (expert_axis, d_axis, None),
+                   "wo": (expert_axis, None, d_axis)}
+        in_pl = [x_pl] + [placements(
+            w_specs.get(k, (None,) * params[k].ndim), mesh) for k in keys]
+        repl_all = placements((None,), mesh)
+
+        def body(x_l, *ws):
+            out, aux = local(dict(zip(keys, ws)), cfg, x_l, mode, impl)
+            if not split:
+                for a in names:
+                    aux = coll.all_reduce_sum(aux, mesh.get_group(a)) / sizes[a]
+            return out, aux
+
+        out, aux = coll.spmd_map(body, mesh, in_pl, (x_pl, repl_all))(
+            x, *(params[k] for k in keys))
+        if "shared" in params:
+            out = out + apply_mlp(params["shared"], cfg, x)
+        return out, aux
+
+    return forward
+
+
+class activate_dtensor:
+    """``activate`` with the DTensor hook (``make_dtensor_ep_forward``)."""
+
+    def __init__(self, ep: EPConfig):
+        self.ep = ep
+
+    def __enter__(self):
+        moe_mod.set_ep_forward(make_dtensor_ep_forward(self.ep))
+        return self
+
+    def __exit__(self, *exc):
+        uninstall()
+        return False
 
 
 def install(ep: EPConfig) -> None:

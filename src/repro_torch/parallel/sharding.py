@@ -27,6 +27,12 @@ The JAX module's ``install``/``activate`` route the model's activation
 hints into ``jax.lax.with_sharding_constraint``, a placement hint to
 XLA's partitioner that changes no value; eager PyTorch has no
 partitioner, so the port has no such hook.
+
+On a ``DeviceMesh`` a spec becomes DTensor placements (``placements``,
+one per mesh dim: ``Shard(d)`` on each axis that splits tensor dim d,
+``Replicate()`` elsewhere), and ``distribute`` / ``distribute_tree`` turn
+full tensors into DTensors holding this rank's block: the port's
+counterpart of ``NamedSharding`` and of ``jit``'s ``in_shardings``.
 """
 
 from __future__ import annotations
@@ -198,6 +204,8 @@ def cache_shardings(cache, mesh, rules: MeshRules, cfg=None):
     attention cache's sequence dim. ``cfg`` is unused, as in JAX."""
 
     def spec_for(path, leaf):
+        if leaf is None:                # a Mamba layer's cross_kv slot
+            return None
         ndim = leaf.ndim
         if path.endswith("pos"):
             return (None,) * ndim
@@ -241,6 +249,66 @@ def local_block(t: torch.Tensor, spec: Spec, mesh,
         step = t.shape[dim] // n
         t = t.narrow(dim, idx * step, step)
     return t
+
+
+def placements(spec: Spec, mesh) -> tuple:
+    """DTensor placements of ``spec`` on ``mesh``: ``Shard(d)`` on every
+    mesh axis that splits tensor dim d, ``Replicate()`` on the others. A
+    dim split over two axes is split over both in mesh order, the first
+    major, as the spec says; a spec that lists them in another order has
+    no placement and raises."""
+    from torch.distributed.tensor import Replicate, Shard
+    names = list(mesh.mesh_dim_names)
+    out = [Replicate()] * len(names)
+    for dim, entry in enumerate(spec):
+        if entry is None:
+            continue
+        idx = [names.index(a) for a in _axes(entry)]
+        if idx != sorted(idx):
+            raise ValueError(f"spec entry {entry} splits dim {dim} over mesh "
+                             f"axes out of the mesh's order {names}")
+        for i in idx:
+            out[i] = Shard(dim)
+    return tuple(out)
+
+
+def distribute(t: torch.Tensor, spec: Spec, mesh):
+    """The DTensor of the full tensor ``t`` under ``spec``: a copy of this
+    rank's block (``local_block``) with ``placements(spec, mesh)``. No
+    communication: every rank is taken to hold the same ``t``."""
+    from torch.distributed.tensor import DTensor
+    # a copy of the block: the rank holds its block, not a view of t
+    return DTensor.from_local(local_block(t, spec, mesh).clone(
+        memory_format=torch.contiguous_format), mesh, placements(spec, mesh),
+        run_check=False, shape=t.shape, stride=t.stride())
+
+
+def distribute_tree(tree, specs, mesh):
+    """``distribute`` over a tree of tensors and its matching spec tree."""
+    if isinstance(tree, dict):
+        return {k: distribute_tree(v, specs[k], mesh) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [distribute_tree(v, s, mesh) for v, s in zip(tree, specs)]
+    if tree is None:
+        return None
+    return distribute(tree, tuple(specs), mesh)
+
+
+def block_bytes(tree, specs, mesh) -> int:
+    """Bytes of this rank's blocks of every tensor of ``tree`` under
+    ``specs`` (shapes only: ``tree`` may hold meta tensors)."""
+    if isinstance(tree, dict):
+        return sum(block_bytes(v, specs[k], mesh) for k, v in tree.items())
+    if isinstance(tree, (list, tuple)):
+        return sum(block_bytes(v, s, mesh) for v, s in zip(tree, specs))
+    if tree is None:
+        return 0
+    sizes = axis_sizes(mesh)
+    n = tree.numel()
+    for entry in specs:
+        if entry is not None:
+            n //= math.prod(sizes[a] for a in _axes(entry))
+    return n * tree.element_size()
 
 
 def gather_block(t: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:

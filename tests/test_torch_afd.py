@@ -311,7 +311,8 @@ def test_port_imports_no_jax_and_no_repro():
             "internvl2_2b", "whisper_small", "mamba2_2_7b")} | {
         "repro_torch.core.overlap"} | {
         f"repro_torch.launch.{m}" for m in (
-            "mesh", "hlo_analysis", "afd_dryrun")} <= imported
+            "mesh", "hlo_analysis", "afd_dryrun", "shapes", "dryrun",
+            "report")} | {"repro_torch.kernels.autotune"} <= imported
 
 
 def test_runtime_defaults_to_cuda():

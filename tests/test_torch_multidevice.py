@@ -14,6 +14,12 @@ The (2, 4) ("data", "model") mesh orders ranks row-major, as
 model j). Beyond the JAX tests, EP training also runs at capacity factor
 1.0, where rows drop: outputs, per-rank drop fraction, aux loss and the
 gradients of ``sum(out²) + 0.01·aux`` are compared on every rank.
+
+The same pair of runs takes one sharded train step of granite-moe's smoke
+config from JAX's ``Model.init`` weights: ``distributed_train_step`` on
+DTensors over the 8 ranks against JAX's ``jit_distributed_train_step``
+on 8 devices (EP hook active on both) and the port's single-process
+step.
 """
 
 import os
@@ -34,6 +40,36 @@ CFG = dict(name="t", family="moe", n_layers=1, d_model=32, n_heads=2,
            n_kv_heads=2, d_head=16, d_ff=0, vocab_size=64, n_experts=8,
            top_k=2, moe_d_ff=16)
 CAPACITY_FACTORS = (8.0, 1.0)
+# the sharded train step: arch, batch, and a capacity factor at which no
+# (token, slot) pair drops, so the EP and single-program MoE agree
+TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_CF = ("granite-moe-1b-a400m", 8,
+                                                16, 8.0)
+STEP_RTOL = 1e-4
+
+
+def make_train_inputs(path) -> None:
+    """JAX's ``Model.init`` weights (CRC-32 keys, so every process draws
+    the same ones) and a token batch, pickled as numpy trees."""
+    import pickle
+    import zlib
+    from unittest import mock
+    import jax
+    from repro import configs as jconfigs
+    from repro.models import common as jcommon
+    from repro.models.model import make_model as jmake_model
+
+    def key_for(root, name):
+        return jax.random.fold_in(root, zlib.crc32(name.encode()) % (1 << 31))
+    with mock.patch.object(jcommon, "_key_for", key_for):
+        params = jmake_model(jconfigs.get_smoke_config(TRAIN_ARCH)).init(
+            jax.random.PRNGKey(0))
+    vocab = jconfigs.get_smoke_config(TRAIN_ARCH).vocab_size
+    tokens = np.random.default_rng(3).integers(
+        0, vocab, (TRAIN_BATCH, TRAIN_SEQ)).astype(np.int32)
+    with open(path, "wb") as f:
+        pickle.dump({"params": jax.tree_util.tree_map(
+            lambda a: np.asarray(a, np.float32), params),
+            "tokens": tokens}, f)
 
 
 def make_inputs(path) -> None:
@@ -115,7 +151,37 @@ with mesh18:
         *a, mesh=mesh18, axis="model"))(
         *(jnp.asarray(inp[n]) for n in ("q", "k", "v", "pos")))
 np.savez(sys.argv[2], **{{k: np.asarray(v) for k, v in res.items()}})
-""".format(CFG=repr(CFG), CAPACITY_FACTORS=repr(CAPACITY_FACTORS))
+
+# one sharded train step (the dry-run's jit_distributed_train_step)
+import dataclasses, pickle
+from repro import configs as jconfigs
+from repro.models.model import make_model
+from repro.parallel import sharding as jshd
+from repro.training import optimizer as jopt
+from repro.training.train import TrainConfig, jit_distributed_train_step
+with open(sys.argv[3], "rb") as f:
+    tr = pickle.load(f)
+jcfg = dataclasses.replace(jconfigs.get_smoke_config({TRAIN_ARCH!r}),
+                           moe_capacity_factor={TRAIN_CF})
+jm = make_model(jcfg)
+params = jax.tree_util.tree_map(jnp.asarray, tr["params"])
+batch = {{"tokens": jnp.asarray(tr["tokens"])}}
+opt = jopt.adamw()
+state = opt.init(params)
+epc = ep_mod.EPConfig(mesh=mesh, ep_axis="model", dp_axes=("data",),
+                      capacity_factor={TRAIN_CF})
+with mesh, jshd.activate(mesh, jshd.TRAIN_RULES), ep_mod.activate(epc):
+    fn, _ = jit_distributed_train_step(jm, opt, params, state, batch, mesh,
+                                       TrainConfig(), jshd.TRAIN_RULES,
+                                       donate=False)
+    new_p, _, metrics = fn(params, state, batch)
+with open(sys.argv[4], "wb") as f:
+    pickle.dump({{"params": jax.tree_util.tree_map(
+        lambda a: np.asarray(a, np.float32), new_p),
+        "loss": float(metrics["loss"]),
+        "grad_norm": float(metrics["grad_norm"])}}, f)
+""".format(CFG=repr(CFG), CAPACITY_FACTORS=repr(CAPACITY_FACTORS),
+           TRAIN_ARCH=TRAIN_ARCH, TRAIN_CF=TRAIN_CF)
 
 
 # ---------------------------------------------------------------------------
@@ -185,8 +251,68 @@ def _rank_main(rank: int, rendezvous: str, in_path: str, out_dir: str):
     res["splitkv"] = coll.splitkv_decode_attention(q, k, v, pos, mesh18)
     np.savez(os.path.join(out_dir, f"rank{rank}.npz"),
              **{k: t.detach().numpy() for k, t in res.items()})
+    _sharded_train_step(rank, mesh, os.path.join(os.path.dirname(in_path),
+                                                 "train.pkl"), out_dir)
     dist.barrier()
     dist.destroy_process_group()
+
+
+def _port_step_inputs(train_path):
+    """The port's model, optimizer, bridged weights, state and batch of the
+    sharded-step case (CPU)."""
+    import dataclasses
+    import pickle
+    from repro_torch import configs as tconfigs
+    from repro_torch.bridge import params_from_jax
+    from repro_torch.models.model import Model
+    from repro_torch.training import optimizer as topt
+    with open(train_path, "rb") as f:
+        tr = pickle.load(f)
+    tcfg = dataclasses.replace(tconfigs.get_smoke_config(TRAIN_ARCH),
+                               moe_capacity_factor=TRAIN_CF)
+    model = Model(tcfg, device="cpu")
+    params = params_from_jax(tcfg, tr["params"], "cpu")
+    opt = topt.adamw()
+    return (model, opt, params, opt.init(params),
+            {"tokens": torch.from_numpy(tr["tokens"])})
+
+
+def _sharded_train_step(rank, mesh, train_path, out_dir):
+    """``distributed_train_step`` over the (2, 4) mesh, with the aux loss
+    (against JAX) and without it (against the single-process step, whose
+    aux is one batch-wide statistic where EP averages per-shard ones);
+    rank 0 writes the gathered parameters and the metrics of both."""
+    import pickle
+    from unittest import mock
+    from repro_torch.models import model as model_mod
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.parallel import ep as ep_mod
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.training.train import (distributed_train_step,
+                                            train_state_shardings)
+    model, opt, params, state, batch = _port_step_inputs(train_path)
+    specs = train_state_shardings(params, state, batch, mesh)
+    placed = [shd.distribute_tree(t, s, mesh)
+              for t, s in zip((params, state, batch), specs)]
+    epc = ep_mod.EPConfig(mesh=mesh, dp_axes=("data",),
+                          capacity_factor=TRAIN_CF)
+    step = distributed_train_step(model, opt, mesh, ep=epc)
+    out = {}
+    for label, coef in (("aux", model_mod.AUX_LOSS_COEF), ("no_aux", 0.0)):
+        with mock.patch.object(model_mod, "AUX_LOSS_COEF", coef):
+            new_p, new_s, metrics = step(*placed)
+        kept = all(a.placements == b.placements for a, b in zip(
+            tree_leaves(new_p) + tree_leaves(new_s),
+            tree_leaves(placed[0]) + tree_leaves(placed[1])))
+        out[label] = {
+            "params": tree_map(lambda t: t.full_tensor().detach().numpy(),
+                               new_p),
+            "placements_kept": kept,
+            **{k: float(metrics[k].full_tensor())
+               for k in ("loss", "grad_norm")}}
+    if rank == 0:
+        with open(os.path.join(out_dir, "port_step.pkl"), "wb") as f:
+            pickle.dump(out, f)
 
 
 # ---------------------------------------------------------------------------
@@ -197,13 +323,15 @@ def _rank_main(rank: int, rendezvous: str, in_path: str, out_dir: str):
 def runs(tmp_path_factory):
     d = tmp_path_factory.mktemp("multidevice")
     make_inputs(d / "inputs.npz")
+    make_train_inputs(d / "train.pkl")
     env = dict(os.environ, PYTHONPATH=SRC + os.pathsep + ROOT,
                XLA_FLAGS="--xla_force_host_platform_device_count=8",
                JAX_PLATFORMS="cpu", OMP_NUM_THREADS="1")
     procs = {
         "jax": subprocess.Popen(
             [sys.executable, "-c", textwrap.dedent(JAX_CODE),
-             str(d / "inputs.npz"), str(d / "jax.npz")], env=env,
+             str(d / "inputs.npz"), str(d / "jax.npz"), str(d / "train.pkl"),
+             str(d / "jax_step.pkl")], env=env,
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
         "torch": subprocess.Popen(
             [sys.executable, os.path.abspath(__file__), str(d / "rdv"),
@@ -219,7 +347,7 @@ def runs(tmp_path_factory):
         assert proc.returncode == 0, f"{name} run failed:\n{log}"
     want = dict(np.load(d / "jax.npz"))
     ranks = [dict(np.load(d / f"rank{r}.npz")) for r in range(WORLD)]
-    return want, ranks, dict(np.load(d / "inputs.npz"))
+    return want, ranks, dict(np.load(d / "inputs.npz")), d
 
 
 def _dp_block(a, data: int):
@@ -230,7 +358,7 @@ def _dp_block(a, data: int):
 def test_ep_train_matches_jax_8ranks(runs, cf):
     """Outputs, per-rank drop fraction, aux and the gradients of
     sum(out²) + 0.01·aux (wi, wo, router) on every rank."""
-    want, ranks, _ = runs
+    want, ranks, _, _ = runs
     if cf == 1.0:
         assert want[f"train{cf}_drop"].max() > 0      # rows do drop here
     for r, got in enumerate(ranks):
@@ -260,7 +388,7 @@ def test_ep_train_matches_jax_8ranks(runs, cf):
 
 
 def test_ep_decode_matches_jax_8ranks(runs):
-    want, ranks, _ = runs
+    want, ranks, _, _ = runs
     for r, got in enumerate(ranks):
         np.testing.assert_allclose(got["decode"],
                                    _dp_block(want["decode"], r // 4),
@@ -272,7 +400,7 @@ def test_ep_decode_matches_jax_8ranks(runs):
 def test_etp_decode_matches_jax_8ranks(runs):
     """Weights held in the FSDP storage layout (experts over "model", D
     over "data"); gather_block puts them back together on every rank."""
-    want, ranks, inp = runs
+    want, ranks, inp, _ = runs
     for r, got in enumerate(ranks):
         np.testing.assert_allclose(got["etp"], want["etp"], atol=1e-5,
                                    err_msg=f"rank {r}")
@@ -282,10 +410,59 @@ def test_etp_decode_matches_jax_8ranks(runs):
 
 
 def test_splitkv_matches_jax_8ranks(runs):
-    want, ranks, _ = runs
+    want, ranks, _, _ = runs
     for r, got in enumerate(ranks):
         np.testing.assert_allclose(got["splitkv"], want["splitkv"],
                                    atol=1e-5, err_msg=f"rank {r}")
+
+
+def _check_step(port, want_params, want, label):
+    assert port["placements_kept"], label
+    for key in ("loss", "grad_norm"):
+        np.testing.assert_allclose(port[key], want[key], rtol=STEP_RTOL,
+                                   err_msg=f"{label} {key}")
+    got = _np_leaves(port["params"])
+    assert len(got) == len(want_params)
+    for i, (g, w) in enumerate(zip(got, want_params)):
+        np.testing.assert_allclose(g, w, rtol=STEP_RTOL, atol=STEP_RTOL,
+                                   err_msg=f"{label} leaf {i}")
+
+
+def test_distributed_train_step_matches_jax_8ranks(runs):
+    """One ``distributed_train_step`` on 8 gloo ranks against JAX's
+    ``jit_distributed_train_step`` on 8 devices (aux loss on, as the
+    model has it) and, with the aux loss off, against the port's
+    single-process step (the EP hook's aux averages per-shard routing
+    statistics, the single program's is batch-wide): loss, gradient norm
+    and every updated leaf within 1e-4 (float32), placements kept."""
+    import pickle
+    from unittest import mock
+    from repro_torch.bridge import params_from_jax
+    from repro_torch.models import model as model_mod
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.training.train import build_step_fn
+    *_, d = runs
+    with open(d / "jax_step.pkl", "rb") as f:
+        jax_step = pickle.load(f)
+    with open(d / "port_step.pkl", "rb") as f:
+        port = pickle.load(f)
+    model, opt, params, state, batch = _port_step_inputs(d / "train.pkl")
+    want = [t.numpy() for t in tree_leaves(
+        params_from_jax(model.cfg, jax_step["params"], "cpu"))]
+    _check_step(port["aux"], want, jax_step, "against JAX")
+    with mock.patch.object(model_mod, "AUX_LOSS_COEF", 0.0):
+        new_p, _, metrics = build_step_fn(model, opt)(params, state, batch)
+    single = {k: float(metrics[k]) for k in ("loss", "grad_norm")}
+    _check_step(port["no_aux"], [t.numpy() for t in tree_leaves(new_p)],
+                single, "against the single-process step")
+
+
+def _np_leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _np_leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _np_leaves(v)]
+    return [tree]
 
 
 # ---------------------------------------------------------------------------
