@@ -221,11 +221,16 @@ Phases, each of which fails the run by raising:
 18. The multi-pod dry-run (``launch/dryrun.py``): a. the sharded train
    step (``distributed_train_step``, DTensors over a (1, 1) NCCL mesh)
    bit-identical to ``build_step_fn`` under the same EP hook (granite at
-   full width on 2 layers, float32, deterministic algorithms); b. one
-   decode cell's program on DTensors with the split-KV override,
-   bit-identical to ``Model.decode_step`` on the kernels; c.
-   ``lower_cell`` on ``HILLCLIMB`` priced on TPU v5e and on the H100 in
-   this process, records and ``price_s`` logged.
+   full width on 2 layers, float32, deterministic algorithms), also under
+   ``parallel.sharding.activate`` with the training and the
+   sequence-parallel rules; b. one decode cell's program on DTensors with
+   the split-KV override, bit-identical to ``Model.decode_step`` on the
+   kernels, with and without ``activate(mesh, SERVE_RULES)``, the same
+   launches both times; c. ``lower_cell`` on ``HILLCLIMB`` priced on TPU
+   v5e and on the H100 in this process, records and ``price_s`` logged,
+   then ``SP_TRAIN`` with and without the ``sp`` lever (collective counts
+   moved, argument bytes equal) and ``MAMBA_DECODE`` (the SSD's heads
+   split over "model").
 
 With ``--profile`` a last phase (16) times 12 steady engine ticks (16
 sequences, prefill chunks interleaved with decode), traces the same ticks
@@ -3888,6 +3893,11 @@ DRYRUN_DECODE = (8, 4096)
 # worst roofline fraction and most collective-bound, paper-representative
 HILLCLIMB = (("h2o-danube-1.8b", "long_500k"),
              ("kimi-k2-1t-a32b", "decode_32k"))
+# 18c also prices the sp lever on the train cell of the worst-fraction
+# pick's architecture against its baseline, and a Mamba decode cell whose
+# SSD heads split over "model"
+SP_TRAIN = ("h2o-danube-1.8b", "train_4k")
+MAMBA_DECODE = ("mamba2-2.7b", "decode_32k")
 
 
 def _equal_trees(torch, a, b) -> list:
@@ -3904,7 +3914,10 @@ def sharded_step_world1(torch, mesh) -> dict:
     mesh against ``build_step_fn`` on plain tensors with the same EP hook,
     granite-moe at full width cut to 2 layers, float32, deterministic
     algorithms: the loss, the gradient norm and every new parameter and
-    state leaf bit-identical."""
+    state leaf bit-identical; then the same step again under
+    ``activate(mesh, rules)`` for the training rules and the
+    sequence-parallel ones (every annotation places its activation on the
+    one rank), bit-identical too."""
     from repro_torch.configs import get_config
     from repro_torch.models.model import Model
     from repro_torch.models.params import init_params
@@ -3935,10 +3948,22 @@ def sharded_step_world1(torch, mesh) -> dict:
         specs = train_state_shardings(params, state, batch, mesh)
         placed = [shd.distribute_tree(t, sp, mesh)
                   for t, sp in zip((params, state, batch), specs)]
+        step = distributed_train_step(model, opt, mesh, ep=epc)
         t0 = time.perf_counter()
-        p2, s2, m2 = distributed_train_step(model, opt, mesh, ep=epc)(*placed)
+        p2, s2, m2 = step(*placed)
         torch.cuda.synchronize()
         dt_s = time.perf_counter() - t0
+        ruled = {}
+        for name in ("TRAIN_RULES", "TRAIN_RULES_SP"):
+            rules = getattr(shd, name)
+            run = [shd.distribute_tree(t, sp, mesh) for t, sp in zip(
+                (params, state, batch),
+                train_state_shardings(params, state, batch, mesh, rules))]
+            t0 = time.perf_counter()
+            with shd.activate(mesh, rules):
+                ruled[name] = step(*run)
+            torch.cuda.synchronize()
+            ruled[name] += (time.perf_counter() - t0,)
     finally:
         torch.use_deterministic_algorithms(False)
     metrics = {k: (float(m1[k]), float(m2[k].full_tensor()))
@@ -3951,7 +3976,17 @@ def sharded_step_world1(torch, mesh) -> dict:
     if bad or any(a != b for a, b in metrics.values()):
         raise AssertionError(f"the sharded step is not bit-identical to "
                              f"build_step_fn: leaves {bad[:8]}, {metrics}")
-    return {"metrics": metrics, "plain_s": plain_s, "dtensor_s": dt_s}
+    for name, (p3, s3, m3, secs) in ruled.items():
+        bad = _equal_trees(torch, p1, p3) + _equal_trees(torch, s1, s3)
+        got = {k: float(m3[k].full_tensor()) for k in ("loss", "grad_norm")}
+        log(f"  18a the sharded step under activate(mesh, {name}): loss, "
+            f"grad norm {got}; {len(bad)} leaves differ from build_step_fn; "
+            f"{secs:.3f} s")
+        if bad or any(got[k] != metrics[k][0] for k in got):
+            raise AssertionError(f"the sharded step under {name} is not "
+                                 f"bit-identical: leaves {bad[:8]}, {got}")
+    return {"metrics": metrics, "plain_s": plain_s, "dtensor_s": dt_s,
+            "ruled_s": {k: v[3] for k, v in ruled.items()}}
 
 
 def decode_cell_world1(torch, mesh) -> dict:
@@ -3959,7 +3994,9 @@ def decode_cell_world1(torch, mesh) -> dict:
     layers, bf16) on DTensors over the (1, 1) mesh with the split-KV
     override (``dryrun._install_splitkv``) and the DTensor EP hook, against
     ``Model.decode_step`` on the kernels: logits and the written cache
-    bit-identical; the split-KV and grouped-GEMM kernels launched."""
+    bit-identical; the split-KV and grouped-GEMM kernels launched. Then
+    the same cell, placed afresh, under ``activate(mesh, SERVE_RULES)``:
+    bit-identical, with the same launches."""
     from torch.distributed.tensor.experimental import implicit_replication
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
@@ -3985,10 +4022,12 @@ def decode_cell_world1(torch, mesh) -> dict:
     tokens = torch.randint(0, cfg.vocab_size, (b,), generator=gen,
                            device="cuda")
     specs = shd.cache_shardings(cache, mesh, shd.SERVE_RULES, cfg)
-    placed = (shd.distribute_tree(params, shd.params_shardings(
-        params, mesh, shd.SERVE_RULES), mesh),
-        shd.distribute_tree(cache, specs, mesh),
-        shd.distribute(tokens, (None,), mesh))
+    p_specs = shd.params_shardings(params, mesh, shd.SERVE_RULES)
+
+    def place():                    # copies: the step writes its cache
+        return (shd.distribute_tree(params, p_specs, mesh),
+                shd.distribute_tree(cache, specs, mesh),
+                shd.distribute(tokens, (None,), mesh))
     plain_cache = {"layers": [{k: v.clone() for k, v in lc.items()}
                               for lc in cache["layers"]],
                    "pos": cache["pos"].clone()}
@@ -3996,33 +4035,81 @@ def decode_cell_world1(torch, mesh) -> dict:
         torch, lambda: model.decode_step(params, plain_cache, tokens))
     epc = dr._ep_config(cfg, shp.SHAPES["decode_32k"], mesh)
 
-    def sharded():
+    def sharded(placed):
         with implicit_replication(), ep_mod.activate_dtensor(epc):
             dr._install_splitkv(mesh, cfg)
             try:
                 return model.decode_step(*placed)
             finally:
                 attn_mod.set_decode_attention_override(None)
-    (got, got_cache), launches = _launches_of(torch, sharded)
-    bad = _equal_trees(torch, want_cache["layers"], got_cache["layers"])
-    same = torch.equal(want, got.full_tensor())
-    log(f"  18b decode cell (granite, {cfg.n_layers} layers, bf16, B {b}, "
-        f"T {t}) on DTensors with the split-KV override vs the kernel path: "
-        f"logits bit-identical {same}, cache leaves differing {len(bad)}; "
-        f"launches {launches} (kernel path {plain_launches})")
-    if not same or bad:
-        raise AssertionError("the decode cell's sharded program is not "
-                             "bit-identical to the kernel path")
-    if not (launches["splitkv_attention"] and launches["grouped_gemm"]):
-        raise AssertionError(f"the decode cell ran no kernel: {launches}")
-    return {"launches": launches}
+
+    def ruled(placed):
+        with shd.activate(mesh, shd.SERVE_RULES):
+            return sharded(placed)
+    out = {}
+    for label, fn in (("", sharded), (" under activate(mesh, SERVE_RULES)",
+                                      ruled)):
+        placed = place()
+        (got, got_cache), launches = _launches_of(torch,
+                                                  lambda: fn(placed))
+        bad = _equal_trees(torch, want_cache["layers"], got_cache["layers"])
+        same = torch.equal(want, got.full_tensor())
+        log(f"  18b decode cell (granite, {cfg.n_layers} layers, bf16, B "
+            f"{b}, T {t}) on DTensors with the split-KV override{label} vs "
+            f"the kernel path: logits bit-identical {same}, cache leaves "
+            f"differing {len(bad)}; launches {launches} (kernel path "
+            f"{plain_launches})")
+        if not same or bad:
+            raise AssertionError(f"the decode cell's sharded program{label} "
+                                 "is not bit-identical to the kernel path")
+        if not (launches["splitkv_attention"] and launches["grouped_gemm"]):
+            raise AssertionError(f"the decode cell ran no kernel: {launches}")
+        if out and launches != out["launches"]:
+            raise AssertionError(f"the decode cell{label} launched "
+                                 f"{launches}, not {out['launches']}")
+        out.setdefault("launches", launches)
+    return out
 
 
 def hillclimb_pricing() -> dict:
     """18c: ``dryrun.lower_cell`` on ``HILLCLIMB`` (single pod), priced on
-    TPU v5e and on the H100, in this process on the host."""
+    TPU v5e and on the H100, in this process on the host; then, on the
+    H100's pricing, ``SP_TRAIN`` with and without the ``sp`` lever (the
+    collective counts must move, the argument bytes must not, and the
+    record carries no ``sp`` note) and ``MAMBA_DECODE`` (its SSD heads
+    split over "model": the mixer is not ``replicated``), each record's
+    collective counts logged."""
     from repro_torch.launch import dryrun as dr
     out = {}
+    levers = {}
+    for variant in ("", "sp"):
+        rec = dr.lower_cell(*SP_TRAIN, False, variant=variant,
+                            hardware="H100")
+        log(f"  18c {'|'.join(SP_TRAIN)}|single {rec['variant']} on H100: "
+            f"price_s {rec['price_s']}, collectives "
+            f"{rec['collectives']['counts']}, t_collective "
+            f"{rec['roofline']['t_collective']:.4e} s, argument bytes "
+            f"{rec['memory']['argument_bytes_dev']}")
+        log("  18c record " + json.dumps(rec))
+        if rec["status"] != "ok" or "sp" in rec:
+            raise AssertionError(f"{SP_TRAIN} {variant} priced {rec}")
+        levers[rec["variant"]] = rec
+    base, sp = levers["baseline"], levers["sp"]
+    if sp["collectives"]["counts"] == base["collectives"]["counts"] or \
+            sp["memory"]["argument_bytes_dev"] != \
+            base["memory"]["argument_bytes_dev"]:
+        raise AssertionError("the sp lever did not move the collectives, or "
+                             "moved the argument bytes")
+    rec = dr.lower_cell(*MAMBA_DECODE, False, hardware="H100")
+    log(f"  18c {'|'.join(MAMBA_DECODE)}|single on H100: price_s "
+        f"{rec['price_s']}, collectives {rec['collectives']['counts']}, "
+        f"flops_dev {rec['cost']['flops_dev']:.6e}, bytes_dev "
+        f"{rec['cost']['bytes_dev']:.6e}, replicated {rec['replicated']}")
+    log("  18c record " + json.dumps(rec))
+    if rec["status"] != "ok" or any("Mamba" in r for r in rec["replicated"]):
+        raise AssertionError(f"{MAMBA_DECODE} priced {rec}")
+    out.update({(*SP_TRAIN, "baseline"): base, (*SP_TRAIN, "sp"): sp,
+                (*MAMBA_DECODE, "H100"): rec})
     for arch, shape in HILLCLIMB:
         for hw in ("TPUv5e", "H100"):
             rec = dr.lower_cell(arch, shape, False, hardware=hw)

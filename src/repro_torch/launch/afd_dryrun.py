@@ -595,7 +595,11 @@ def role_programs(cell: Cell, device):
     f_in = _to(f_in, device)
 
     def run_a(impl=None):
-        out = a_role_layer(cfg, blk, x, pos, a_comm, impl)
+        # the A role's program under its serving rules, as JAX compiles
+        # it; the rank-local program holds plain tensors, which the rules
+        # pass unchanged, so no priced or measured number moves
+        with shd.activate(a_mesh, shd.SERVE_RULES):
+            out = a_role_layer(cfg, blk, x, pos, a_comm, impl)
         return {"x": out[0], "shared": out[4], "attn": out[6],
                 "topi": out[3]}
 

@@ -29,15 +29,19 @@ hook's. ``replicated`` names the pieces DTensor could not split and that
 run replicated: the attention core keeps its heads whole where the query
 heads do not divide over "model" (and gathers the KV heads whole where
 only they do not), the MoE layer keeps its experts
-whole where they do not divide over the EP axis, and the Mamba mixer
-runs every head on each rank of "model" (``models.mamba2``).
+whole where they do not divide over the EP axis, and the Mamba mixer's
+SSD runs every head on each rank of "model" where the rules do not split
+its heads over "model" (they do not divide, or ``sp`` gives "model" to the
+sequence; ``models.mamba2``).
 
-Two levers differ from JAX's by nature. ``sp`` changes the batch and cache
-specs (``TRAIN_RULES_SP`` / ``SERVE_RULES_SP``) and nothing else: the port
-has no activation-placement hook (``parallel.sharding``). ``donate``: PyTorch
-has no buffer donation; in the port it means the decode step writes the
-cache in place (``alias_bytes_dev`` counts the cache), and without it the
-step first copies the cache, as JAX's undonated program makes a new one.
+Each program runs under ``parallel.sharding.activate(mesh, rules)``, as
+JAX's compiles under its rules, so the models' activation annotations
+place their activations: ``sp`` (``TRAIN_RULES_SP`` / ``SERVE_RULES_SP``)
+splits the sequence over "model" at them. One lever differs from JAX's by
+nature. ``donate``: PyTorch has no buffer donation; in the port it means
+the decode step writes the cache in place (``alias_bytes_dev`` counts the
+cache), and without it the step first copies the cache, as JAX's
+undonated program makes a new one.
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.dryrun          # all cells
@@ -177,7 +181,7 @@ def _fake_like(t: torch.Tensor) -> torch.Tensor:
     return torch.empty(t.shape, dtype=t.dtype)
 
 
-def _replicated_pieces(cfg, mesh, epc) -> list:
+def _replicated_pieces(cfg, spec: shp.ShapeSpec, mesh, rules, epc) -> list:
     """The pieces whose block is whole where the rules would split them:
     see the module's docstring."""
     n_model = shd.axis_sizes(mesh).get("model", 1)
@@ -194,9 +198,22 @@ def _replicated_pieces(cfg, mesh, epc) -> list:
                        f"of model={n_model})")
     if epc is not None and cfg.n_experts % epc.ep_size:
         out.append(f"experts ({cfg.n_experts} over model={epc.ep_size})")
-    if cfg.ssm_state:
-        out.append(f"Mamba mixer ({cfg.ssm_heads} heads whole on each of "
-                   f"model={n_model})")
+    if cfg.ssm_state and n_model > 1:
+        # the SSD's heads: the cache's placement in decode, the annotated
+        # head inputs' (sequence padded to a chunk multiple) otherwise
+        if spec.kind == "decode":
+            logical = ("batch", "heads", None, None)
+            shape = (spec.global_batch, cfg.ssm_heads, cfg.ssm_head_dim,
+                     cfg.ssm_state)
+        else:
+            chunk = min(cfg.ssm_chunk, spec.seq_len) or 1
+            logical = ("batch", "seq", "heads", None)
+            shape = (spec.global_batch, -(-spec.seq_len // chunk) * chunk,
+                     cfg.ssm_heads, cfg.ssm_head_dim)
+        if shd.logical_to_spec(mesh, rules, logical,
+                               shape)[logical.index("heads")] is None:
+            out.append(f"Mamba mixer ({cfg.ssm_heads} SSD heads whole on "
+                       f"each of model={n_model})")
     return out
 
 
@@ -248,6 +265,10 @@ def _run_variant(cfg, spec: shp.ShapeSpec, mesh, rules, epc, splitkv: bool,
             del params, args
 
             def program():
+                with shd.activate(mesh, rules):
+                    return run()
+
+            def run():
                 ctx = ep_mod.activate_dtensor(epc) if epc else \
                     contextlib.nullcontext()
                 if spec.kind == "train":
@@ -302,7 +323,7 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool,
 
     ``variant`` is a "+"-joined set of §Perf levers (see VARIANTS):
       etp       weight-stationary ETP MoE decode (paper §5.1)
-      sp        sequence-parallel batch/cache specs
+      sp        sequence-parallel activations (the seq axis on "model")
       donate    the decode cache written in place
       qkf32     f32 Q/K before attention scores
       nosplitkv disable the split-KV decode override (iteration-0 baseline)
@@ -359,7 +380,7 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool,
         else:
             r = _run_variant(cfg, spec, mesh, rules, epc, splitkv, arch, **kw)
             cost, cbytes, bounded = r["cost"], r["collectives"], r["bounded"]
-        replicated = _replicated_pieces(cfg, mesh, epc)
+        replicated = _replicated_pieces(cfg, spec, mesh, rules, epc)
     price_s = time.perf_counter() - t0
     terms = hlo.roofline(cost, cbytes, chips, hardware)
     hbm = {"TPUv5e": 16e9, "H100": 80e9}.get(hardware)
@@ -406,8 +427,6 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool,
         },
         "bounded": bounded,
         "replicated": replicated,
-        **({"sp": "batch and cache specs only: the port places no "
-                  "activations"} if "sp" in levers else {}),
     }
 
 

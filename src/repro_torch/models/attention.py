@@ -26,6 +26,12 @@ and ``set_decode_attention_override`` installs a decode-attention
 strategy (the split-KV decode over a sharded cache) that
 ``attention_decode`` tries before its own.
 
+Activations carry JAX's six ``shard`` annotations (``models.common``):
+q, k and v after the projections, the core's output, the output
+projection's and the flash branch's. On DTensors the core runs on local
+blocks (``_local_core``), so its annotation sits at that boundary, on
+the DTensor the blocks make up.
+
 ``attention_prefill`` (the single-program model's full-sequence prefill)
 and ``cross_attention`` run no kernel: the JAX package computes both dense
 and masked, outside any Pallas call, and so does the port.
@@ -40,7 +46,8 @@ import torch
 
 from repro_torch.kernels import ops as kops
 from repro_torch.models import kvcache
-from repro_torch.models.common import ArchConfig, gathered, is_dtensor
+from repro_torch.models.common import (ArchConfig, gathered, is_dtensor,
+                                       rows_whole, shard)
 from repro_torch.models.layers import apply_rope, rmsnorm_1d
 
 NEG_INF = -1e30
@@ -71,17 +78,19 @@ def _split_heads(t: torch.Tensor, n: int, d: int) -> torch.Tensor:
 
 
 def _project_q(params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+    x = rows_whole(x)
     q = x @ gathered(params["wq"]).to(x.dtype)
     if "bq" in params:
         q = q + params["bq"].to(x.dtype)
     q = _split_heads(q, cfg.n_heads, cfg.d_head)
     if "q_norm" in params:
         q = rmsnorm_1d(params["q_norm"], q, cfg.rms_eps)
-    return q
+    return shard(q, "batch", "seq", "heads", None)
 
 
 def _project_kv(params, cfg: ArchConfig,
                 x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    x = rows_whole(x)
     k = x @ gathered(params["wk"]).to(x.dtype)
     v = x @ gathered(params["wv"]).to(x.dtype)
     if "bk" in params:
@@ -91,6 +100,8 @@ def _project_kv(params, cfg: ArchConfig,
     v = _split_heads(v, cfg.n_kv_heads, cfg.d_head)
     if "k_norm" in params:
         k = rmsnorm_1d(params["k_norm"], k, cfg.rms_eps)
+    k = shard(k, "batch", "seq", "kv_heads", None)
+    v = shard(v, "batch", "seq", "kv_heads", None)
     return k, v
 
 
@@ -104,7 +115,7 @@ def gqa_scores_softmax_out(cfg: ArchConfig, q: torch.Tensor, k: torch.Tensor,
     probabilities are cast back before the value contraction, as in JAX.
     """
     if is_dtensor(q):
-        return _local_core(cfg, q, k, v, mask)
+        return shard(_local_core(cfg, q, k, v, mask), "batch", "seq", "heads")
     b, s, hq, d = q.shape
     hkv = k.shape[2]
     qg = q.reshape(b, s, hkv, hq // hkv, d)
@@ -117,7 +128,7 @@ def gqa_scores_softmax_out(cfg: ArchConfig, q: torch.Tensor, k: torch.Tensor,
         scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
     out = torch.einsum("bkgst,btkd->bskgd", probs, v)
-    return out.reshape(b, s, hq * d)
+    return shard(out.reshape(b, s, hq * d), "batch", "seq", "heads")
 
 
 def _local_core(cfg: ArchConfig, q, k, v, mask):
@@ -171,7 +182,9 @@ def _local_core(cfg: ArchConfig, q, k, v, mask):
 
 
 def _output_proj(params, x_attn: torch.Tensor) -> torch.Tensor:
-    return x_attn @ gathered(params["wo"]).to(x_attn.dtype)
+    wo = gathered(params["wo"])
+    out = rows_whole(x_attn, wo) @ wo.to(x_attn.dtype)
+    return shard(out, "batch", "seq", "embed")
 
 
 def causal_mask(cfg: ArchConfig, s: int, t: Optional[int] = None,
@@ -280,6 +293,7 @@ def attention_prefill_cached(params, cfg: ArchConfig, x: torch.Tensor,
         out = kops.flash_prefill_attention(
             q, cache["k"], cache["v"], causal=cfg.causal, impl="cuda",
             q_offset=off, t_valid=min(off + c, t)).reshape(b, c, -1)
+        out = shard(out, "batch", "seq", "heads")
     else:
         valid = kvcache.valid_mask_chunk(cfg, t, pos, c)       # (B, C, T)
         out = gqa_scores_softmax_out(cfg, q, cache["k"], cache["v"],

@@ -1,10 +1,17 @@
-"""Shared model machinery: ArchConfig, layer plans and initializers.
+"""Shared model machinery: ArchConfig, layer plans, initializers and the
+logical-axis activation hook.
 
-A copy of ``repro.models.common`` (which imports JAX) without the sharding
-hooks: dtypes resolve to ``torch.dtype`` and the initializers draw from a
-``torch.Generator``. ``layer_plan()`` still factors depth into a prefix
-plus a repeated period, because the JAX parameter pytree is stacked that
-way and ``repro_torch.bridge`` unstacks it with this plan.
+A copy of ``repro.models.common`` (which imports JAX): dtypes resolve to
+``torch.dtype`` and the initializers draw from a ``torch.Generator``.
+``layer_plan()`` still factors depth into a prefix plus a repeated period,
+because the JAX parameter pytree is stacked that way and
+``repro_torch.bridge`` unstacks it with this plan.
+
+Activations are annotated with logical axis names (``shard``);
+``parallel.sharding.install`` maps them onto a mesh. With nothing
+installed the hook is the identity, and a plain (non-DTensor) tensor
+passes unchanged even while rules are installed, so the single-device
+paths never touch distribution code.
 """
 
 from __future__ import annotations
@@ -12,9 +19,46 @@ from __future__ import annotations
 import dataclasses
 import math
 import zlib
-from typing import List, Optional, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
+
+# ---------------------------------------------------------------------------
+# Logical-axis activation hook
+# ---------------------------------------------------------------------------
+
+# Installed by repro_torch.parallel.sharding.install(); identity by default.
+_constraint_fn: Callable[[torch.Tensor, Tuple[Optional[str], ...]],
+                         torch.Tensor] = lambda x, axes: x
+
+
+def set_constraint_fn(fn) -> None:
+    global _constraint_fn
+    _constraint_fn = fn
+
+
+def reset_constraint_fn() -> None:
+    set_constraint_fn(lambda x, axes: x)
+
+
+def shard(x: torch.Tensor, *axes: Optional[str]) -> torch.Tensor:
+    """Annotate ``x`` with logical axis names (one per dim; None =
+    replicated)."""
+    return _constraint_fn(x, tuple(axes))
+
+
+# Canonical logical axis vocabulary (parallel/sharding.py maps these):
+#   batch    — global batch / token-parallel dim  → ("pod", "data")
+#   seq      — sequence (activations)             → None (or "model" for SP)
+#   embed    — d_model features                   → None
+#   heads    — attention q-heads, SSM heads       → "model"
+#   kv_heads — attention kv-heads                 → "model" when divisible
+#   kv_seq   — KV-cache sequence dim              → "model" (split-KV decode)
+#   mlp      — FFN hidden width                   → "model"
+#   experts  — MoE expert dim                     → "model"
+#   vocab    — output vocabulary                  → "model"
+#   stack    — scanned layer-period dim           → None
+#   fsdp     — parameter sharding dim for FSDP    → "data"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -297,6 +341,38 @@ def gathered(w: torch.Tensor) -> torch.Tensor:
           for n, p in zip(names, w.placements)]
     return w if pl == list(w.placements) else w.redistribute(
         w.device_mesh, pl)
+
+
+def rows_whole(x: torch.Tensor, w: Optional[torch.Tensor] = None
+               ) -> torch.Tensor:
+    """An activation as a projection takes it. On a DTensor split along a
+    dim between the batch (dim 0) and the features (the last dim), as
+    ``shard``'s "seq" is under the sequence-parallel rules, that split is
+    gathered: DTensor's matmul rules fail on the placement a (batch, seq)
+    pair split over two mesh axes takes when the matmul flattens it. With
+    ``w``, the weight of a row-split projection, the features are split
+    over the mesh axes that split ``w``'s rows (a dividing split moved
+    there, or a whole copy cut), so that the product is a partial sum and
+    ``w``'s gradient is computed split, as in the forward. A plain tensor
+    is returned as it is."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    if not isinstance(x, DTensor):
+        return x
+    last = x.ndim - 1
+    rows = ({i for i, p in enumerate(w.placements)
+             if isinstance(p, Shard) and p.dim == 0}
+            if isinstance(w, DTensor) else set())
+    pl = []
+    for i, (p, n) in enumerate(zip(x.placements, x.device_mesh.shape)):
+        middle = isinstance(p, Shard) and 0 < p.dim < last
+        if i in rows and (middle or isinstance(p, Replicate)) \
+                and x.shape[-1] % int(n) == 0:
+            p = Shard(last)
+        elif middle:
+            p = Replicate()
+        pl.append(p)
+    return x if pl == list(x.placements) else x.redistribute(
+        x.device_mesh, pl)
 
 
 def _leaves(tree):

@@ -16,6 +16,13 @@ On DTensor planes (the multi-pod dry-run's caches, split over batch and
 T) the writers write each rank's block in place: the new rows come whole
 along T, and each rank keeps the slots of its own T range.
 
+The initializers carry JAX's four ``shard`` annotations. They make plain
+tensors, which every annotation passes unchanged: a DTensor cache is
+placed by its caller (``parallel.sharding.cache_shardings`` and
+``distribute_tree``), and the writers work on local blocks
+(``_local_plane``) between DTensor boundaries that keep the cache's
+placement.
+
 The whole-model cache of ``models.model`` is flat, one entry per layer:
 ``{"layers": [per-layer cache], "pos": (B,) int32}``, plus ``"cross_kv"``
 (one (k, v) per decoder layer, None for Mamba layers) for enc-dec archs.
@@ -30,7 +37,7 @@ from typing import Dict
 import torch
 
 from repro_torch.models.common import (ArchConfig, LayerSpec, is_dtensor,
-                                       tree_bytes)
+                                       shard, tree_bytes)
 
 Cache = Dict[str, torch.Tensor]
 
@@ -45,16 +52,21 @@ def attn_cache_len(cfg: ArchConfig, max_len: int) -> int:
 def init_attn_cache(cfg: ArchConfig, batch: int, max_len: int,
                     device) -> Cache:
     shape = (batch, attn_cache_len(cfg, max_len), cfg.n_kv_heads, cfg.d_head)
-    return {"k": torch.zeros(shape, dtype=cfg.compute_dtype, device=device),
-            "v": torch.zeros(shape, dtype=cfg.compute_dtype, device=device)}
+    return {"k": shard(torch.zeros(shape, dtype=cfg.compute_dtype,
+                                   device=device),
+                       "batch", "kv_seq", "kv_heads", None),
+            "v": shard(torch.zeros(shape, dtype=cfg.compute_dtype,
+                                   device=device),
+                       "batch", "kv_seq", "kv_heads", None)}
 
 
 def init_ssm_cache(cfg: ArchConfig, batch: int, device) -> Cache:
-    return {"conv": torch.zeros((batch, cfg.ssm_conv - 1, cfg.conv_dim),
-                                dtype=cfg.compute_dtype, device=device),
-            "state": torch.zeros((batch, cfg.ssm_heads, cfg.ssm_head_dim,
-                                  cfg.ssm_state), dtype=torch.float32,
-                                 device=device)}
+    conv = torch.zeros((batch, cfg.ssm_conv - 1, cfg.conv_dim),
+                       dtype=cfg.compute_dtype, device=device)
+    state = torch.zeros((batch, cfg.ssm_heads, cfg.ssm_head_dim,
+                         cfg.ssm_state), dtype=torch.float32, device=device)
+    return {"conv": shard(conv, "batch", None, None),
+            "state": shard(state, "batch", "heads", None, None)}
 
 
 def init_layer_cache(cfg: ArchConfig, spec: LayerSpec, batch: int,

@@ -12,7 +12,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.common import (ArchConfig, dense_init, embed_init,
-                                       gathered)
+                                       gathered, rows_whole, shard)
 
 
 def init_norm(cfg: ArchConfig, device) -> Dict[str, torch.Tensor]:
@@ -99,13 +99,15 @@ def init_mlp(seed: int, name: str, cfg: ArchConfig, device,
 
 def apply_mlp(params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     """Gated MLP: fused [gate; up] projection, activation, down."""
-    h = x @ gathered(params["wi"]).to(x.dtype)
+    h = rows_whole(x) @ gathered(params["wi"]).to(x.dtype)
     if "bi" in params:
         h = activation(cfg, h + params["bi"].to(x.dtype))
     else:
         gate, up = h.chunk(2, dim=-1)
         h = activation(cfg, gate) * up
-    out = h @ gathered(params["wo"]).to(x.dtype)
+    h = shard(h, "batch", "seq", "mlp")
+    wo = gathered(params["wo"])
+    out = rows_whole(h, wo) @ wo.to(x.dtype)
     if "bo" in params:
         out = out + params["bo"].to(x.dtype)
     return out
@@ -169,7 +171,7 @@ def embed_tokens(params, cfg: ArchConfig, tokens: torch.Tensor,
         cap = params["pos"].shape[0]
         x = x + lookup(params["pos"], positions.long().clamp(0, cap - 1)).to(
             cfg.compute_dtype)
-    return x
+    return shard(x, "batch", "seq", "embed")
 
 
 def init_lm_head(seed: int, cfg: ArchConfig,
@@ -188,4 +190,5 @@ def apply_lm_head(head_params, embed_params, cfg: ArchConfig,
     w = head_params.get("w")
     if w is None:
         w = embed_params["tok"].T
-    return (x @ gathered(w).to(x.dtype)).float()
+    return shard((rows_whole(x) @ gathered(w).to(x.dtype)).float(), "batch",
+                 "seq", "vocab")

@@ -34,7 +34,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import ArchConfig, dense_init, gathered
+from repro_torch.models.common import ArchConfig, dense_init, is_dtensor, shard
 from repro_torch.models.layers import gated_rmsnorm
 
 
@@ -171,134 +171,169 @@ def ssd_sequential(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     return torch.stack(ys, dim=1).to(x.dtype), state
 
 
-def _on_blocks(fn):
-    """``fn(params, cfg, x, cache)`` on each rank's block when ``x`` is a
-    DTensor (``collectives.spmd_map``): the batch split as ``x`` is, the
-    weights and every head whole on each rank, and the new SSM state cut
-    back to the heads the cache's placement gives the rank. DTensor's
-    rules do not split the scan (its flattened batch and head dims give
-    placements its batched products fail on), so the heads are computed
-    whole: the ``replicated`` pieces of ``launch.dryrun``'s record."""
-    @functools.wraps(fn)
-    def wrapped(params, cfg: ArchConfig, x: torch.Tensor, cache=None):
-        from torch.distributed.tensor import DTensor, Replicate, Shard
-        if not isinstance(x, DTensor):
-            return fn(params, cfg, x, cache)
-        from repro_torch.parallel.collectives import spmd_map
-        mesh = x.device_mesh
-        names = list(mesh.mesh_dim_names)
-        batch = tuple(p if isinstance(p, Shard) and p.dim == 0
-                      else Replicate() for p in x.placements)
-        whole = (Replicate(),) * len(names)
-        keys = sorted(params)
-        heads = [] if cache is None else [
-            i for i, p in enumerate(cache["state"].placements)
-            if isinstance(p, Shard) and p.dim == 1]
-
-        def local(x_l, *rest):
-            c = (None if cache is None else
-                 {"conv": rest[len(keys)], "state": rest[len(keys) + 1]})
-            out, new = fn(dict(zip(keys, rest[:len(keys)])), cfg, x_l, c)
-            if new is None:
-                return (out,)
-            st = new["state"]
-            for i in heads:         # this rank's heads, as the cache holds
-                h = st.shape[1] // int(mesh.shape[i])
-                st = st.narrow(1, mesh.get_local_rank(names[i]) * h, h)
-            return out, new["conv"], st
-
-        args = [x] + [params[k] for k in keys]
-        in_pl = [batch] + [whole] * len(keys)
-        out_pl = [batch]
-        if cache is not None:
-            args += [cache["conv"], cache["state"]]
-            in_pl += [batch, batch]
-            out_pl += [batch, tuple(Shard(1) if i in heads else p
-                                    for i, p in enumerate(batch))]
-        res = spmd_map(local, mesh, tuple(in_pl), tuple(out_pl))(*args)
-        if cache is None:
-            return res[0], None
-        return res[0], {"conv": res[1], "state": res[2]}
-    return wrapped
+def _moved(placements, dims) -> tuple:
+    """DTensor placements that keep ``Shard(d)`` as ``Shard(dims[d])`` for
+    each tensor dim d in ``dims`` and replicate every other."""
+    from torch.distributed.tensor import Replicate, Shard
+    return tuple(Shard(dims[p.dim]) if isinstance(p, Shard) and p.dim in dims
+                 else Replicate() for p in placements)
 
 
-@_on_blocks
+def _on_blocks(fn, mesh, in_pl, out_pl, *args) -> tuple:
+    """``fn(*args)`` (a tuple); with a ``mesh`` (DTensor arguments) on each
+    rank's blocks under ``in_pl`` / ``out_pl`` (``collectives.spmd_map``)."""
+    if mesh is None:
+        return fn(*args)
+    from repro_torch.parallel.collectives import spmd_map
+    return spmd_map(fn, mesh, tuple(in_pl), tuple(out_pl))(*args)
+
+
+def _layouts(x: torch.Tensor):
+    """(mesh, the batch placement of ``x``, the whole placement) on a
+    DTensor; (None, None, None) on a plain tensor."""
+    if not is_dtensor(x):
+        return None, None, None
+    from torch.distributed.tensor import Replicate
+    return (x.device_mesh, _moved(x.placements, {0: 0}),
+            (Replicate(),) * x.device_mesh.ndim)
+
+
+_IN_KEYS = ("in_proj", "conv_w", "conv_b", "dt_bias")
+
+
+def _prefill_in(cfg: ArchConfig, chunk: int, x, in_proj, conv_w, conv_b,
+                dt_bias) -> tuple:
+    """The projections and the conv of ``mamba_prefill``, every head:
+    (z, the last ssm_conv - 1 raw xBC rows, head inputs (B, S', H, P), dt
+    (B, S', H) and B, C on the heads (B, S', H, N)); S' is S padded to a
+    chunk multiple, where padded steps get dt = 0 (no decay, no input), so
+    states and outputs are unaffected."""
+    bs, s, _ = x.shape
+    z, x_bc_raw, dt_raw = _split_proj(cfg, x @ in_proj.to(x.dtype))
+    x_bc = F.silu(causal_conv(cfg, x_bc_raw, conv_w, conv_b))
+    xh, b, c = _split_xbc(cfg, x_bc)
+    dt = F.softplus(dt_raw.float() + dt_bias[None, None, :])
+    pad = (-s) % chunk
+    if pad:
+        xh, b, c, dt = (F.pad(t, (0, 0, 0, pad)) for t in (xh, b, c, dt))
+    xheads = xh.reshape(bs, s + pad, cfg.ssm_heads, cfg.ssm_head_dim)
+    return (z, x_bc_raw[:, max(s - (cfg.ssm_conv - 1), 0):], xheads, dt,
+            _broadcast_groups(cfg, b), _broadcast_groups(cfg, c))
+
+
+def _prefill_scan(chunk: int, s: int, xheads, dt, bh, ch, a_log,
+                  d) -> tuple:
+    """The SSD over the heads it is given, and the ``D·x`` skip: (y
+    (B, S, H, P), final state (B, H, P, N) float32)."""
+    y, state = ssd_chunked(xheads, dt, -torch.exp(a_log), bh, ch, chunk)
+    y = y[:, :s] + (d.to(y.dtype)[None, None, :, None]
+                    * xheads[:, :s].to(y.dtype))
+    return y, state
+
+
+def _decode_in(cfg: ArchConfig, x, conv, in_proj, conv_w, conv_b,
+               dt_bias) -> tuple:
+    """The projections and the conv ring step of ``mamba_decode``, every
+    head: (z, the new conv tail, head inputs (B, H, P), dt (B, H), B, C on
+    the heads (B, H, N))."""
+    bs = x.shape[0]
+    z, x_bc_raw, dt_raw = _split_proj(cfg, x @ in_proj.to(x.dtype))
+    window = torch.cat([conv.to(x.dtype), x_bc_raw], dim=1)
+    x_bc = torch.einsum("bkc,kc->bc", window, conv_w.to(x.dtype))
+    x_bc = F.silu(x_bc + conv_b.to(x.dtype))[:, None]
+    xh, b, c = _split_xbc(cfg, x_bc)
+    dt = F.softplus(dt_raw.float() + dt_bias[None, None, :])[:, 0]
+    return (z, window[:, 1:].to(conv.dtype),
+            xh.reshape(bs, cfg.ssm_heads, cfg.ssm_head_dim), dt,
+            _broadcast_groups(cfg, b)[:, 0], _broadcast_groups(cfg, c)[:, 0])
+
+
+def _decode_scan(xheads, dt, bh, ch, state, a_log, d) -> tuple:
+    """One recurrence step over the heads it is given, and the ``D·x``
+    skip: (y (B, H, P), new state (B, H, P, N) float32)."""
+    da = torch.exp(dt * -torch.exp(a_log)[None, :])[..., None, None]
+    upd = ((dt[..., None] * xheads.float())[..., None]
+           * bh.float()[:, :, None, :])
+    state = state * da + upd
+    y = torch.einsum("bhpn,bhn->bhp", state, ch.float())
+    y = y.to(xheads.dtype) + d.to(xheads.dtype)[None, :, None] * xheads
+    return y, state
+
+
+def _mixer_out(cfg: ArchConfig, y, z, norm, out_proj) -> tuple:
+    """The gated norm over all of d_inner and the output projection."""
+    y = gated_rmsnorm(norm, y.reshape(*z.shape[:2], cfg.d_inner), z,
+                      cfg.rms_eps)
+    return (y @ out_proj.to(y.dtype),)
+
+
 def mamba_prefill(params, cfg: ArchConfig, x: torch.Tensor,
                   cache: Optional[Dict[str, torch.Tensor]] = None
                   ) -> Tuple[torch.Tensor,
                              Optional[Dict[str, torch.Tensor]]]:
     """Full-sequence SSD from a zero state. x: (B, S, D). Returns (out
     (B, S, D), with a cache: a new cache dict holding the conv tail and the
-    final state; the input cache is not modified)."""
-    bs, s, _ = x.shape
-    zxbcdt = x @ gathered(params["in_proj"]).to(x.dtype)
-    z, x_bc_raw, dt_raw = _split_proj(cfg, zxbcdt)
+    final state; the input cache is not modified).
 
-    x_bc = F.silu(causal_conv(cfg, x_bc_raw, params["conv_w"],
-                              params["conv_b"]))
-    xh, b, c = _split_xbc(cfg, x_bc)
-    dt = F.softplus(dt_raw.float() + params["dt_bias"][None, None, :])
-
-    # pad S to a chunk multiple; padded steps get dt = 0 (no decay, no
-    # input), so states and outputs are unaffected
+    On DTensors each stage runs on local blocks: the projections, the conv
+    and the gated norm on the batch as ``x`` splits it, with the weights
+    whole (JAX's parameter rules leave them whole over "model"); the SSD
+    on the placement JAX's annotation of the head inputs gives it, so its
+    heads split over "model" where the installed rules put them there and
+    they divide, else whole on every rank. The heads are gathered for the
+    norm; the final state takes the cache's placement."""
+    s = x.shape[1]
     chunk = min(cfg.ssm_chunk, s) or 1
-    pad = (-s) % chunk
-    if pad:
-        xh, b, c, dt = (F.pad(t, (0, 0, 0, pad)) for t in (xh, b, c, dt))
-
-    a = -torch.exp(params["A_log"])
-    xheads = xh.reshape(bs, s + pad, cfg.ssm_heads, cfg.ssm_head_dim)
-    y, final_state = ssd_chunked(xheads, dt, a, _broadcast_groups(cfg, b),
-                                 _broadcast_groups(cfg, c), chunk)
-    y = y[:, :s] + (params["D"].to(y.dtype)[None, None, :, None]
-                    * xheads[:, :s].to(y.dtype))
-    y = gated_rmsnorm(params["norm"], y.reshape(bs, s, cfg.d_inner), z,
-                      cfg.rms_eps)
-    out = y @ gathered(params["out_proj"]).to(y.dtype)
-
+    mesh, batch, whole = _layouts(x)
+    z, tail, xheads, dt, bh, ch = _on_blocks(
+        functools.partial(_prefill_in, cfg, chunk), mesh,
+        [batch] + [whole] * 4, [batch] * 6, x,
+        *(params[k] for k in _IN_KEYS))
+    xheads = shard(xheads, "batch", "seq", "heads", None)
+    hp = vec = st = None
+    if mesh is not None:
+        hp = _moved(xheads.placements, {0: 0, 2: 2})
+        vec, st = _moved(hp, {2: 0}), _moved(hp, {0: 0, 2: 1})
+    y, state = _on_blocks(functools.partial(_prefill_scan, chunk, s), mesh,
+                          [hp] * 4 + [vec] * 2, (hp, st), xheads, dt, bh,
+                          ch, params["A_log"], params["D"])
+    out, = _on_blocks(functools.partial(_mixer_out, cfg), mesh,
+                      (batch, batch, whole, whole), (batch,), y, z,
+                      params["norm"], params["out_proj"])
+    out = shard(out, "batch", "seq", "embed")
     if cache is None:
         return out, None
-    tail = cfg.ssm_conv - 1
-    conv_tail = (x_bc_raw[:, s - tail:] if s >= tail else
-                 torch.cat([cache["conv"][:, s:].to(x_bc_raw.dtype),
-                            x_bc_raw], dim=1))
-    return out, {"conv": conv_tail.to(cache["conv"].dtype),
-                 "state": final_state}
+    if mesh is not None:
+        state = state.redistribute(mesh, cache["state"].placements)
+    if s < cfg.ssm_conv - 1:
+        tail = torch.cat([cache["conv"][:, s:].to(tail.dtype), tail], dim=1)
+    return out, {"conv": tail.to(cache["conv"].dtype), "state": state}
 
 
-@_on_blocks
 def mamba_decode(params, cfg: ArchConfig, x: torch.Tensor,
                  cache: Dict[str, torch.Tensor]
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """O(1) stateful step. x: (B, 1, D); cache {"conv" (B, ssm_conv-1,
     conv_dim), "state" (B, H, P, N) float32}. Returns (out (B, 1, D), a
-    new cache dict; the input cache is not modified)."""
-    bs = x.shape[0]
-    zxbcdt = x @ gathered(params["in_proj"]).to(x.dtype)
-    z, x_bc_raw, dt_raw = _split_proj(cfg, zxbcdt)
+    new cache dict; the input cache is not modified).
 
-    # conv ring step
-    window = torch.cat([cache["conv"].to(x.dtype), x_bc_raw], dim=1)
-    x_bc = torch.einsum("bkc,kc->bc", window, params["conv_w"].to(x.dtype))
-    x_bc = F.silu(x_bc + params["conv_b"].to(x.dtype))[:, None]
-    new_conv = window[:, 1:]
-
-    xh, b, c = _split_xbc(cfg, x_bc)
-    dt = F.softplus(dt_raw.float() + params["dt_bias"][None, None, :])[:, 0]
-    a = -torch.exp(params["A_log"])
-
-    xheads = xh.reshape(bs, cfg.ssm_heads, cfg.ssm_head_dim)       # (B,H,P)
-    bh = _broadcast_groups(cfg, b)[:, 0]                           # (B,H,N)
-    ch = _broadcast_groups(cfg, c)[:, 0]
-
-    da = torch.exp(dt * a[None, :])[..., None, None]               # (B,H,1,1)
-    upd = ((dt[..., None] * xheads.float())[..., None]
-           * bh.float()[:, :, None, :])
-    state = cache["state"] * da + upd
-    y = torch.einsum("bhpn,bhn->bhp", state, ch.float())
-    y = y.to(x.dtype) + params["D"].to(x.dtype)[None, :, None] * xheads
-
-    y = gated_rmsnorm(params["norm"], y.reshape(bs, 1, cfg.d_inner), z,
-                      cfg.rms_eps)
-    out = y @ gathered(params["out_proj"]).to(y.dtype)
-    return out, {"conv": new_conv.to(cache["conv"].dtype), "state": state}
+    On DTensors the stages run on local blocks as in ``mamba_prefill``;
+    the recurrence runs on the heads the cache's state holds on the rank
+    (split over "model" where they divide, as XLA propagates the state's
+    placement through JAX's step)."""
+    mesh, batch, whole = _layouts(x)
+    z, conv, xheads, dt, bh, ch = _on_blocks(
+        functools.partial(_decode_in, cfg), mesh,
+        [batch, batch] + [whole] * 4, [batch] * 6, x, cache["conv"],
+        *(params[k] for k in _IN_KEYS))
+    hp = vec = st = None
+    if mesh is not None:
+        st = _moved(cache["state"].placements, {0: 0, 1: 1})
+        hp, vec = _moved(st, {0: 0, 1: 1}), _moved(st, {1: 0})
+    y, state = _on_blocks(_decode_scan, mesh, [hp] * 4 + [st] + [vec] * 2,
+                          (hp, st), xheads, dt, bh, ch, cache["state"],
+                          params["A_log"], params["D"])
+    out, = _on_blocks(functools.partial(_mixer_out, cfg), mesh,
+                      (batch, batch, whole, whole), (batch,), y, z,
+                      params["norm"], params["out_proj"])
+    return out, {"conv": conv, "state": state}

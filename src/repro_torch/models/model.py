@@ -156,10 +156,16 @@ class Model:
         """Next-token cross entropy (+ MoE aux). VLM prefix excluded."""
         logits, aux = self.forward(params, batch, mode="train")
         tokens = batch["tokens"]
-        if self.cfg.vision_seq and "patch_embeds" in batch:
-            logits = logits[:, batch["patch_embeds"].shape[1]:]
-        labels = tokens[:, 1:].long()
-        nll = token_nll(logits[:, :-1], labels)
+        skip = (batch["patch_embeds"].shape[1]
+                if self.cfg.vision_seq and "patch_embeds" in batch else 0)
+        # every position is scored (those without a label against the
+        # sequence's first token) and the nll sliced: logits whose sequence
+        # is split over "model" (the sequence-parallel rules) are then never
+        # sliced along it, which would gather them whole on every rank
+        first = tokens[:, :1]
+        labels = torch.cat([first.expand(-1, skip), tokens[:, 1:], first],
+                           dim=1).long()
+        nll = token_nll(logits, labels)[:, skip:-1]
         mask = torch.ones_like(nll)
         if "loss_mask" in batch:
             mask = batch["loss_mask"][:, 1:].float()

@@ -12,6 +12,10 @@ Counterpart of ``repro.models.moe``.
     (``out_index``). The model's decode step runs it; the AFD runtime's F
     role runs ``expert_ffn`` on the gating the A role sends it.
 
+``moe_capacity`` carries JAX's two ``shard`` annotations (the expert
+buffers). On DTensors the MoE layers run the EP hook's local blocks
+instead, as JAX's do, so there they meet no DTensor.
+
 Routing is softmax-then-top-k with optional renormalisation of the gate
 weights. The router weight stays float32, as in JAX. Shared experts are a
 plain gated MLP added to the routed output. ``set_ep_forward`` installs a
@@ -28,7 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kops
-from repro_torch.models.common import ArchConfig, dense_init
+from repro_torch.models.common import ArchConfig, dense_init, shard
 from repro_torch.models.layers import activation, apply_mlp, init_mlp
 
 
@@ -150,8 +154,10 @@ def moe_capacity(params, cfg: ArchConfig, x: torch.Tensor,
     combine = dispatch * topw[..., None, None].to(dt)
 
     x_e = torch.einsum("nkec,nd->ecd", dispatch, x_flat)        # (E, C, D)
+    x_e = shard(x_e, "experts", None, "embed")
     h = _expert_ffn(cfg, torch.einsum("ecd,edf->ecf", x_e,
                                       params["wi"].to(dt)))
+    h = shard(h, "experts", None, "mlp")
     y_e = torch.einsum("ecf,efd->ecd", h, params["wo"].to(dt))
     out = torch.einsum("nkec,ecd->nd", combine, y_e)
     if "shared" in params:

@@ -43,10 +43,10 @@ def _residual(x: torch.Tensor) -> torch.Tensor:
     """The residual stream's placement on DTensors: the batch split as it
     came (the data-parallel axes), every other dim whole on every rank. A
     sum left partial over "model" by a row-split projection is all-reduced
-    here, as XLA's partitioner does after JAX's output projections; DTensor
-    would otherwise reduce-scatter it along the sequence, a placement its
-    matmul rules then fail on. The gradient gets the same placement.
-    Plain tensors pass unchanged."""
+    here, as XLA's partitioner does after JAX's output projections, and a
+    sequence split that the sequence-parallel rules' annotations made is
+    gathered: the norms run on the whole sequence. The gradient gets the
+    same placement. Plain tensors pass unchanged."""
     from torch.distributed.tensor import DTensor, Replicate, Shard
     if not isinstance(x, DTensor):
         return x

@@ -23,10 +23,14 @@ JAX leaf's without its leading ``stack`` entry (``None`` in every rule
 set). ``local_block`` cuts this rank's block of a full tensor and
 ``gather_block`` puts the full tensor back together from the blocks.
 
-The JAX module's ``install``/``activate`` route the model's activation
-hints into ``jax.lax.with_sharding_constraint``, a placement hint to
-XLA's partitioner that changes no value; eager PyTorch has no
-partitioner, so the port has no such hook.
+``install`` / ``activate`` route the model's activation hints
+(``models.common.shard``) into a constraint, as JAX's route them into
+``jax.lax.with_sharding_constraint``: a DTensor whose rank equals the
+number of logical axes is redistributed to the placement the rules give
+it (a dim that does not divide stays replicated); any other tensor, and
+every plain tensor, passes unchanged. A constraint changes no value,
+only where the value lives and so which collectives the program runs.
+The caller installs the rules around a program, as JAX's dry-runs do.
 
 On a ``DeviceMesh`` a spec becomes DTensor placements (``placements``,
 one per mesh dim: ``Shard(d)`` on each axis that splits tensor dim d,
@@ -44,6 +48,8 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
+
+from repro_torch.models import common as mcommon
 
 Spec = Tuple[object, ...]               # one entry per tensor dim
 
@@ -133,6 +139,40 @@ def logical_to_spec(mesh, rules: MeshRules, logical: Sequence,
         used.update(flat)
         out.append(entry)
     return tuple(out)
+
+
+def install(mesh, rules: MeshRules) -> None:
+    """Route ``models.common.shard`` through a DTensor redistribute on
+    ``mesh`` under ``rules`` (see the module's docstring)."""
+    from torch.distributed.tensor import DTensor
+
+    def constrain(x, logical):
+        if not isinstance(x, DTensor) or x.ndim != len(logical):
+            return x
+        pl = placements(logical_to_spec(mesh, rules, logical, x.shape), mesh)
+        return x if tuple(x.placements) == pl else x.redistribute(mesh, pl)
+
+    mcommon.set_constraint_fn(constrain)
+
+
+def uninstall() -> None:
+    mcommon.reset_constraint_fn()
+
+
+class activate:
+    """Context manager: ``install(mesh, rules)`` for the duration; the
+    hook is uninstalled on the way out, also when the body raises."""
+
+    def __init__(self, mesh, rules: MeshRules):
+        self.mesh, self.rules = mesh, rules
+
+    def __enter__(self):
+        install(self.mesh, self.rules)
+        return self
+
+    def __exit__(self, *exc):
+        uninstall()
+        return False
 
 
 # ---------------------------------------------------------------------------

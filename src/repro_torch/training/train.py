@@ -175,7 +175,10 @@ def distributed_train_step(model: Model, opt: Optimizer, mesh,
     capacity 1.25, as the dry-run configures it) and returns the new
     parameters and state with the placements they came in with, and the
     metrics as replicated DTensors. Plain tensors the model makes (masks,
-    positions) count as replicated."""
+    positions) count as replicated. The activations' placement is the
+    caller's, as in JAX: run the step inside
+    ``parallel.sharding.activate(mesh, rules)`` to place them by
+    ``rules`` (``TRAIN_RULES_SP`` splits the sequence over "model")."""
     from torch.distributed.tensor import DTensor
     from torch.distributed.tensor.experimental import implicit_replication
 

@@ -542,6 +542,42 @@ def _check_measured(rec, priced):
     assert rec["outputs"]["f_role"]["y"].shape == (12, cfg.d_model)
 
 
+def test_a_role_rules_move_no_number():
+    """The A role's program runs under its serving rules
+    (``activate(a_mesh, SERVE_RULES)``, as JAX compiles it); its rank-local
+    program holds plain tensors, so its outputs and its priced counts are
+    those of the same program with no rules installed."""
+    import contextlib
+    from unittest import mock
+    from repro_torch.models import common as tcommon
+    cell = ad.make_cell(GRANITE["arch"], GRANITE["batch"], GRANITE["context"],
+                        GRANITE["n_a_nodes"], GRANITE["n_f_nodes"], 3, False)
+    installed = []
+    layer = ad.a_role_layer
+
+    def spy(*args, **kw):
+        installed.append(tcommon._constraint_fn.__qualname__)
+        return layer(*args, **kw)
+
+    def priced():
+        runs, _, _ = ad.role_programs(cell, torch.device("cpu"))
+        with thlo.count_cost() as counter:
+            out = runs["a_role"]()
+        return out, counter.cost, counter.collectives
+
+    with mock.patch.object(ad, "a_role_layer", spy):
+        with_rules = priced()
+        with mock.patch.object(ad.shd, "activate",
+                               lambda *a: contextlib.nullcontext()):
+            without = priced()
+    assert installed == ["install.<locals>.constrain",
+                         "reset_constraint_fn.<locals>.<lambda>"]
+    assert with_rules[1:] == without[1:]
+    assert with_rules[0].keys() == without[0].keys()
+    for k, v in with_rules[0].items():
+        assert torch.equal(v, without[0][k]), k
+
+
 def test_measure_afd_on_the_cpu(records):
     """The granite 4A + 4F cell on the CPU (plain versions, host clock):
     every field, the priced counts equal ``lower_afd(hardware="H100")``'s

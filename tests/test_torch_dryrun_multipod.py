@@ -115,26 +115,35 @@ def test_two_probe_extrapolation_equals_full_depth(mesh8):
     assert coll.link_bytes == full["collectives"].link_bytes
 
 
-@pytest.mark.parametrize("variant", ["donate", "etp", "qkf32", "ga4"])
+@pytest.mark.parametrize("variant", ["donate", "etp", "qkf32", "ga4", "sp"])
 def test_levers_on_tiny_cells(mesh8, variant):
     """Each lever runs on a tiny cell it applies to: ``donate`` writes the
     cache in place (its alias bytes are the cache's block), ``etp`` is the
     weight-stationary decode, ``qkf32`` float32 scores, ``ga4`` four
-    microbatches."""
-    kind = "train" if variant == "ga4" else "decode"
+    microbatches, ``sp`` the sequence split over "model" at the
+    activation annotations (``TRAIN_RULES_SP`` installed around the step:
+    other collectives, the same argument bytes)."""
+    kind = "train" if variant in ("ga4", "sp") else "decode"
     cfg, spec = _tiny(kind, 32 if kind == "train" else 64)
-    rules = shd.TRAIN_RULES if kind == "train" else shd.SERVE_RULES
+    base_rules = shd.TRAIN_RULES if kind == "train" else shd.SERVE_RULES
+    rules = shd.TRAIN_RULES_SP if variant == "sp" else base_rules
     epc = dr._ep_config(cfg, spec, mesh8)
     if variant == "etp":
         epc = dataclasses.replace(epc, etp=True)
     kw = dict(donate_cache=variant == "donate", qk_f32=variant == "qkf32",
               grad_accum=4 if variant == "ga4" else 1)
-    base = dr._run_variant(cfg, spec, mesh8, rules, dr._ep_config(
+    base = dr._run_variant(cfg, spec, mesh8, base_rules, dr._ep_config(
         cfg, spec, mesh8), True, ARCH, memory=True)
     mem = dr._run_variant(cfg, spec, mesh8, rules, epc, True, ARCH,
                           memory=True, **kw)
     cost = dr._run_variant(cfg, spec, mesh8, rules, epc, True, ARCH, **kw)
     assert cost["cost"]["flops"] > 0
+    if variant == "sp":
+        base_cost = dr._run_variant(cfg, spec, mesh8, base_rules, epc, True,
+                                    ARCH)
+        assert cost["collectives"].counts != base_cost["collectives"].counts
+        assert cost["collectives"].counts["reduce-scatter"] > \
+            base_cost["collectives"].counts["reduce-scatter"]
     if variant == "donate":
         model = dr.Model(cfg, device="cpu")
         cache = shp.cache_specs(model, spec)
@@ -143,6 +152,47 @@ def test_levers_on_tiny_cells(mesh8, variant):
         assert mem["alias_bytes_dev"] == block > 0
         assert base["alias_bytes_dev"] == 0
     assert mem["argument_bytes_dev"] == base["argument_bytes_dev"]
+
+
+@pytest.mark.parametrize("kind", ["prefill", "decode"])
+def test_mamba_mixer_splits_its_heads(mesh8, kind):
+    """A tiny mamba2 cell (8 SSD heads over model = 4): its record no
+    longer lists the mixer as replicated, and the SSD's priced FLOPs per
+    device are the whole-head run's (the same cell with "heads" mapped to
+    no axis) over 4, within 1%; the argument bytes do not move."""
+    from unittest import mock
+    from repro_torch.models import mamba2
+    arch = "mamba2-2.7b"
+    cfg = tconfigs.get_smoke_config(arch)
+    spec = shp.ShapeSpec("tiny_" + kind, kind, 64, 8)
+    whole = dataclasses.replace(shd.SERVE_RULES, heads=None)
+    assert dr._replicated_pieces(cfg, spec, mesh8, shd.SERVE_RULES,
+                                 None) == []
+    assert dr._replicated_pieces(cfg, spec, mesh8, whole, None) == [
+        "Mamba mixer (8 SSD heads whole on each of model=4)"]
+    name = "_prefill_scan" if kind == "prefill" else "_decode_scan"
+    scan = getattr(mamba2, name)
+    flops = {}
+
+    def counted(*args):             # the SSD's share of the open counter
+        if hlo._OPEN is None:       # the memory run
+            return scan(*args)
+        before = hlo._OPEN.flops
+        out = scan(*args)
+        flops[rules_name] = flops.get(rules_name, 0) + hlo._OPEN.flops - before
+        return out
+    args = {}
+    with mock.patch.object(mamba2, name, counted):
+        for rules_name, rules in (("split", shd.SERVE_RULES),
+                                  ("whole", whole)):
+            dr._run_variant(cfg, spec, mesh8, rules, None, False, arch)
+            args[rules_name] = dr._run_variant(
+                cfg, spec, mesh8, rules, None, False, arch,
+                memory=True)["argument_bytes_dev"]
+    assert flops["whole"] > 0
+    assert flops["split"] == pytest.approx(flops["whole"] / 4, rel=1e-2)
+    if kind == "prefill":       # the cache's heads follow the rules
+        assert args["split"] == args["whole"]
 
 
 def test_kernels_are_priced_by_their_bound_on_fake_tensors(mesh8):
@@ -170,6 +220,10 @@ def test_lower_cell_record_and_cli(tmp_path):
                 "fits"} <= set(rec["memory"])
         assert rec["memory"]["fits"]["hardware"] == hw
     assert recs["TPUv5e"]["cost"] == recs["H100"]["cost"]
+    sp = dr.lower_cell("qwen1.5-0.5b", "decode_32k", False, variant="sp")
+    assert sp["status"] == "ok" and sp["variant"] == "sp" and "sp" not in sp
+    assert sp["memory"]["argument_bytes_dev"] == \
+        recs["TPUv5e"]["memory"]["argument_bytes_dev"]
     assert recs["H100"]["roofline"]["t_memory"] < \
         recs["TPUv5e"]["roofline"]["t_memory"]
     out = tmp_path / "dryrun.json"

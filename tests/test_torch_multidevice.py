@@ -19,9 +19,15 @@ The same pair of runs takes one sharded train step of granite-moe's smoke
 config from JAX's ``Model.init`` weights: ``distributed_train_step`` on
 DTensors over the 8 ranks against JAX's ``jit_distributed_train_step``
 on 8 devices (EP hook active on both) and the port's single-process
-step.
+step, and the same step again under the sequence-parallel rules
+(``activate(mesh, TRAIN_RULES_SP)`` on both sides). It also runs the
+Mamba-2 mixer of mamba2's smoke config (prefill with a cache, then one
+decode step) under the serving rules, its 8 SSD heads split over
+"model", against JAX's mixer under the same rules and the port's
+single-process mixer.
 """
 
+import contextlib
 import os
 import subprocess
 import sys
@@ -45,6 +51,10 @@ CAPACITY_FACTORS = (8.0, 1.0)
 TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_CF = ("granite-moe-1b-a400m", 8,
                                                 16, 8.0)
 STEP_RTOL = 1e-4
+# the Mamba-2 mixer: layer 0 of mamba2's smoke config, prefill of
+# (batch, seq) tokens' activations and one decode step
+MAMBA_ARCH, MAMBA_BATCH, MAMBA_SEQ = "mamba2-2.7b", 4, 16
+MAMBA_ATOL = 1e-5
 
 
 def make_train_inputs(path) -> None:
@@ -63,13 +73,22 @@ def make_train_inputs(path) -> None:
     with mock.patch.object(jcommon, "_key_for", key_for):
         params = jmake_model(jconfigs.get_smoke_config(TRAIN_ARCH)).init(
             jax.random.PRNGKey(0))
+        mamba = jmake_model(jconfigs.get_smoke_config(MAMBA_ARCH)).init(
+            jax.random.PRNGKey(0))
     vocab = jconfigs.get_smoke_config(TRAIN_ARCH).vocab_size
     tokens = np.random.default_rng(3).integers(
         0, vocab, (TRAIN_BATCH, TRAIN_SEQ)).astype(np.int32)
+    d = jconfigs.get_smoke_config(MAMBA_ARCH).d_model
+    rng = np.random.default_rng(4)
+    to_np = lambda t: jax.tree_util.tree_map(  # noqa: E731
+        lambda a: np.asarray(a, np.float32), t)
     with open(path, "wb") as f:
-        pickle.dump({"params": jax.tree_util.tree_map(
-            lambda a: np.asarray(a, np.float32), params),
-            "tokens": tokens}, f)
+        pickle.dump({"params": to_np(params), "tokens": tokens,
+                     "mamba_params": to_np(mamba),
+                     "mamba_x": rng.standard_normal(
+                         (MAMBA_BATCH, MAMBA_SEQ, d)).astype(np.float32),
+                     "mamba_x1": rng.standard_normal(
+                         (MAMBA_BATCH, 1, d)).astype(np.float32)}, f)
 
 
 def make_inputs(path) -> None:
@@ -180,8 +199,38 @@ with open(sys.argv[4], "wb") as f:
         lambda a: np.asarray(a, np.float32), new_p),
         "loss": float(metrics["loss"]),
         "grad_norm": float(metrics["grad_norm"])}}, f)
+
+# the same step under the sequence-parallel rules
+with mesh, jshd.activate(mesh, jshd.TRAIN_RULES_SP), ep_mod.activate(epc):
+    fn, _ = jit_distributed_train_step(jm, opt, params, state, batch, mesh,
+                                       TrainConfig(), jshd.TRAIN_RULES_SP,
+                                       donate=False)
+    sp_p, _, sp_m = fn(params, state, batch)
+
+# the Mamba-2 mixer under the serving rules: prefill with a cache, a step
+from repro.models import kvcache as jkv
+from repro.models import mamba2 as jm2
+mcfg = jconfigs.get_smoke_config({MAMBA_ARCH!r})
+mp = jax.tree_util.tree_map(lambda a: jnp.asarray(a[0]),
+                            tr["mamba_params"]["decoder"]["stack"][0]["mamba"])
+with mesh, jshd.activate(mesh, jshd.SERVE_RULES):
+    def pre(p, x):
+        return jm2.mamba_prefill(p, mcfg, x,
+                                 jkv.init_ssm_cache(mcfg, x.shape[0]))
+    m_out, m_cache = jax.jit(pre)(mp, jnp.asarray(tr["mamba_x"]))
+    m_out1, m_cache1 = jax.jit(lambda p, x, c: jm2.mamba_decode(
+        p, mcfg, x, c))(mp, jnp.asarray(tr["mamba_x1"]), m_cache)
+with open(sys.argv[5], "wb") as f:
+    pickle.dump({{"sp": {{"params": jax.tree_util.tree_map(
+        lambda a: np.asarray(a, np.float32), sp_p),
+        "loss": float(sp_m["loss"]), "grad_norm": float(sp_m["grad_norm"])}},
+        "mamba": {{k: np.asarray(v, np.float32) for k, v in (
+            ("out", m_out), ("conv", m_cache["conv"]),
+            ("state", m_cache["state"]), ("out1", m_out1),
+            ("conv1", m_cache1["conv"]), ("state1", m_cache1["state"]))}}}},
+        f)
 """.format(CFG=repr(CFG), CAPACITY_FACTORS=repr(CAPACITY_FACTORS),
-           TRAIN_ARCH=TRAIN_ARCH, TRAIN_CF=TRAIN_CF)
+           TRAIN_ARCH=TRAIN_ARCH, TRAIN_CF=TRAIN_CF, MAMBA_ARCH=MAMBA_ARCH)
 
 
 # ---------------------------------------------------------------------------
@@ -251,8 +300,9 @@ def _rank_main(rank: int, rendezvous: str, in_path: str, out_dir: str):
     res["splitkv"] = coll.splitkv_decode_attention(q, k, v, pos, mesh18)
     np.savez(os.path.join(out_dir, f"rank{rank}.npz"),
              **{k: t.detach().numpy() for k, t in res.items()})
-    _sharded_train_step(rank, mesh, os.path.join(os.path.dirname(in_path),
-                                                 "train.pkl"), out_dir)
+    train_path = os.path.join(os.path.dirname(in_path), "train.pkl")
+    _sharded_train_step(rank, mesh, train_path, out_dir)
+    _mamba_mixer(rank, mesh, train_path, out_dir)
     dist.barrier()
     dist.destroy_process_group()
 
@@ -297,13 +347,23 @@ def _sharded_train_step(rank, mesh, train_path, out_dir):
     epc = ep_mod.EPConfig(mesh=mesh, dp_axes=("data",),
                           capacity_factor=TRAIN_CF)
     step = distributed_train_step(model, opt, mesh, ep=epc)
+    sp_specs = train_state_shardings(params, state, batch, mesh,
+                                     shd.TRAIN_RULES_SP)
+    sp_placed = [shd.distribute_tree(t, s, mesh)
+                 for t, s in zip((params, state, batch), sp_specs)]
     out = {}
-    for label, coef in (("aux", model_mod.AUX_LOSS_COEF), ("no_aux", 0.0)):
-        with mock.patch.object(model_mod, "AUX_LOSS_COEF", coef):
-            new_p, new_s, metrics = step(*placed)
+    for label, coef, rules in (
+            ("aux", model_mod.AUX_LOSS_COEF, None),
+            ("no_aux", 0.0, None),
+            ("sp", model_mod.AUX_LOSS_COEF, shd.TRAIN_RULES_SP)):
+        run = placed if rules is None else sp_placed
+        ctx = (contextlib.nullcontext() if rules is None
+               else shd.activate(mesh, rules))
+        with mock.patch.object(model_mod, "AUX_LOSS_COEF", coef), ctx:
+            new_p, new_s, metrics = step(*run)
         kept = all(a.placements == b.placements for a, b in zip(
             tree_leaves(new_p) + tree_leaves(new_s),
-            tree_leaves(placed[0]) + tree_leaves(placed[1])))
+            tree_leaves(run[0]) + tree_leaves(run[1])))
         out[label] = {
             "params": tree_map(lambda t: t.full_tensor().detach().numpy(),
                                new_p),
@@ -313,6 +373,61 @@ def _sharded_train_step(rank, mesh, train_path, out_dir):
     if rank == 0:
         with open(os.path.join(out_dir, "port_step.pkl"), "wb") as f:
             pickle.dump(out, f)
+
+
+def _mamba_inputs(train_path):
+    """Layer 0's Mamba-2 weights of mamba2's smoke config (JAX's, through
+    the bridge), its config and the two activations, on the CPU."""
+    import pickle
+    from repro_torch import configs as tconfigs
+    from repro_torch.bridge import params_from_jax
+    with open(train_path, "rb") as f:
+        tr = pickle.load(f)
+    cfg = tconfigs.get_smoke_config(MAMBA_ARCH)
+    params = params_from_jax(cfg, tr["mamba_params"], "cpu")
+    return (cfg, params["layers"][0]["mamba"],
+            torch.from_numpy(tr["mamba_x"]), torch.from_numpy(tr["mamba_x1"]))
+
+
+def _mamba_mixer(rank, mesh, train_path, out_dir):
+    """``mamba_prefill`` with a cache, then ``mamba_decode``, on DTensors
+    placed by the serving rules and under them, with the heads each
+    rank's SSD ran on recorded; rank r writes its full outputs and those
+    head counts."""
+    import pickle
+    from unittest import mock
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.models import kvcache as tkv
+    from repro_torch.models import mamba2
+    from repro_torch.parallel import sharding as shd
+    cfg, p, x, x1 = _mamba_inputs(train_path)
+    rules = shd.SERVE_RULES
+    p_spec = shd.params_shardings({"mamba": p}, mesh, rules)["mamba"]
+    cache = tkv.init_ssm_cache(cfg, x.shape[0], "cpu")
+    act = lambda t: shd.distribute(t, shd.logical_to_spec(  # noqa: E731
+        mesh, rules, ("batch", "seq", "embed"), t.shape), mesh)
+    placed = (shd.distribute_tree(p, p_spec, mesh), act(x), act(x1),
+              shd.distribute_tree(cache, shd.cache_shardings(
+                  cache, mesh, rules), mesh))
+    heads = []
+
+    def seen(fn):
+        def wrapped(*args):
+            heads.append(args[-2].shape[0])         # this rank's A_log
+            return fn(*args)
+        return wrapped
+    with mock.patch.object(mamba2, "_prefill_scan",
+                           seen(mamba2._prefill_scan)), \
+            mock.patch.object(mamba2, "_decode_scan",
+                              seen(mamba2._decode_scan)), \
+            shd.activate(mesh, rules), implicit_replication():
+        out, c = mamba2.mamba_prefill(placed[0], cfg, placed[1], placed[3])
+        out1, c1 = mamba2.mamba_decode(placed[0], cfg, placed[2], c)
+    res = {"heads": heads, **{k: v.full_tensor().numpy() for k, v in (
+        ("out", out), ("conv", c["conv"]), ("state", c["state"]),
+        ("out1", out1), ("conv1", c1["conv"]), ("state1", c1["state"]))}}
+    with open(os.path.join(out_dir, f"mamba{rank}.pkl"), "wb") as f:
+        pickle.dump(res, f)
 
 
 # ---------------------------------------------------------------------------
@@ -331,7 +446,7 @@ def runs(tmp_path_factory):
         "jax": subprocess.Popen(
             [sys.executable, "-c", textwrap.dedent(JAX_CODE),
              str(d / "inputs.npz"), str(d / "jax.npz"), str(d / "train.pkl"),
-             str(d / "jax_step.pkl")], env=env,
+             str(d / "jax_step.pkl"), str(d / "jax_more.pkl")], env=env,
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
         "torch": subprocess.Popen(
             [sys.executable, os.path.abspath(__file__), str(d / "rdv"),
@@ -455,6 +570,60 @@ def test_distributed_train_step_matches_jax_8ranks(runs):
     single = {k: float(metrics[k]) for k in ("loss", "grad_norm")}
     _check_step(port["no_aux"], [t.numpy() for t in tree_leaves(new_p)],
                 single, "against the single-process step")
+
+
+def test_sp_train_step_matches_jax_8ranks(runs):
+    """``distributed_train_step`` under ``activate(mesh, TRAIN_RULES_SP)``
+    (the sequence split over "model" at every activation annotation) on 8
+    gloo ranks against JAX's ``jit_distributed_train_step`` under
+    ``shd.activate(mesh, TRAIN_RULES_SP)`` on 8 devices: loss, gradient
+    norm and every updated leaf within 1e-4 (float32), placements kept."""
+    import pickle
+    from repro_torch.bridge import params_from_jax
+    from repro_torch.models.common import tree_leaves
+    *_, d = runs
+    with open(d / "jax_more.pkl", "rb") as f:
+        jax_sp = pickle.load(f)["sp"]
+    with open(d / "port_step.pkl", "rb") as f:
+        port = pickle.load(f)
+    model, *_ = _port_step_inputs(d / "train.pkl")
+    want = [t.numpy() for t in tree_leaves(
+        params_from_jax(model.cfg, jax_sp["params"], "cpu"))]
+    _check_step(port["sp"], want, jax_sp, "sequence-parallel, against JAX")
+
+
+def test_mamba_mixer_heads_split_matches_jax_8ranks(runs):
+    """mamba2's mixer (8 SSD heads) on DTensors over the (2, 4) mesh under
+    the serving rules: every rank's SSD ran on its 2 heads, in prefill and
+    in decode; the outputs, conv tails and states equal JAX's mixer under
+    the same rules on 8 devices within 1e-5 (float32) and, bit for bit,
+    the port's single-process mixer on each data-parallel rank's
+    sequences (a GEMM over fewer rows may round otherwise on the CPU)."""
+    import pickle
+    from repro_torch.models import kvcache as tkv
+    from repro_torch.models import mamba2
+    *_, d = runs
+    with open(d / "jax_more.pkl", "rb") as f:
+        want = pickle.load(f)["mamba"]
+    cfg, p, x, x1 = _mamba_inputs(d / "train.pkl")
+    blocks = []
+    for xb, x1b in zip(x.chunk(2), x1.chunk(2)):      # the 2 "data" blocks
+        out, c = mamba2.mamba_prefill(
+            p, cfg, xb, tkv.init_ssm_cache(cfg, xb.shape[0], "cpu"))
+        out1, c1 = mamba2.mamba_decode(p, cfg, x1b, c)
+        blocks.append((out, c["conv"], c["state"], out1, c1["conv"],
+                       c1["state"]))
+    single = {k: torch.cat(parts).numpy() for k, parts in zip(
+        ("out", "conv", "state", "out1", "conv1", "state1"), zip(*blocks))}
+    for r in range(WORLD):
+        with open(d / f"mamba{r}.pkl", "rb") as f:
+            got = pickle.load(f)
+        assert got["heads"] == [cfg.ssm_heads // 4] * 2, (r, got["heads"])
+        for k, w in want.items():
+            np.testing.assert_allclose(got[k], w, atol=MAMBA_ATOL,
+                                       rtol=MAMBA_ATOL,
+                                       err_msg=f"rank {r} {k}")
+            assert np.array_equal(got[k], single[k]), f"rank {r} {k}"
 
 
 def _np_leaves(tree):

@@ -1,7 +1,9 @@
 """The port's distribution layer in one process: the sharding rules
 against JAX's ``PartitionSpec``s leaf for leaf (all 10 smoke configs on
-(1, 1), (2, 4) and (2, 2, 2) meshes, with no devices on either side), and
-the expert-parallel and split-KV paths at world size 1 on a gloo group
+(1, 1), (2, 4) and (2, 2, 2) meshes, with no devices on either side), the
+activation annotations (``models.common.shard``) at JAX's 17 sites and
+their placement under ``parallel.sharding.activate``, and the
+expert-parallel and split-KV paths at world size 1 on a gloo group
 against JAX's on a one-device mesh (``tests/test_parallel.py``'s cases).
 Multi-rank runs are in ``tests/test_torch_multidevice.py``; the NCCL
 world-size-1 runs on the card are the ``gpu`` tests at the end."""
@@ -204,6 +206,243 @@ def test_logical_to_spec_and_blocks():
     rows = [torch.cat([blocks[(r, c)] for c in range(2)], 1)
             for r in range(4)]
     assert torch.equal(torch.cat(rows, 0), t)
+
+
+# ---------------------------------------------------------------------------
+# activation placement: JAX's shard() sites against the port's
+# ---------------------------------------------------------------------------
+
+# JAX's 17 annotation sites as (function, logical axes); k and v share one
+# entry in ``_project_kv`` and in ``init_attn_cache``
+SITES = {
+    ("_project_q", ("batch", "seq", "heads", None)),
+    ("_project_kv", ("batch", "seq", "kv_heads", None)),
+    ("gqa_scores_softmax_out", ("batch", "seq", "heads")),
+    ("_output_proj", ("batch", "seq", "embed")),
+    ("attention_prefill_cached", ("batch", "seq", "heads")),
+    ("init_attn_cache", ("batch", "kv_seq", "kv_heads", None)),
+    ("init_ssm_cache", ("batch", None, None)),
+    ("init_ssm_cache", ("batch", "heads", None, None)),
+    ("apply_mlp", ("batch", "seq", "mlp")),
+    ("embed_tokens", ("batch", "seq", "embed")),
+    ("apply_lm_head", ("batch", "seq", "vocab")),
+    ("mamba_prefill", ("batch", "seq", "heads", None)),
+    ("mamba_prefill", ("batch", "seq", "embed")),
+    ("moe_capacity", ("experts", None, "embed")),
+    ("moe_capacity", ("experts", None, "mlp")),
+}
+SITE_RULES = ("TRAIN_RULES", "TRAIN_RULES_SP", "SERVE_RULES",
+              "SERVE_RULES_SP", "SERVE_RULES_WS")
+# batch, sequence, cache length and flash chunk of the recorded runs
+SITE_B, SITE_S, SITE_T, SITE_C = 4, 16, 16, 8
+
+
+@contextlib.contextmanager
+def _recording(common_mod, seen: set):
+    """Install a constraint that records (calling function, logical axes,
+    shape) of every ``shard`` call and changes nothing."""
+    import sys
+
+    def record(x, axes):
+        seen.add((sys._getframe(2).f_code.co_name, tuple(axes),
+                  tuple(int(n) for n in x.shape)))
+        return x
+    common_mod.set_constraint_fn(record)
+    try:
+        yield
+    finally:
+        common_mod.reset_constraint_fn()
+
+
+def _flash_applies(cfg) -> bool:
+    return cfg.n_heads > 0 and cfg.sliding_window is None
+
+
+def _jax_sites(arch) -> set:
+    """JAX's train forward, prefill and decode step traced on stand-ins,
+    and its flash-prefill chunk (Pallas, interpreted) run on zeros."""
+    from repro.launch import shapes as jshp
+    from repro.models import attention as jattn
+    from repro.models import common as jcommon
+    from repro.models import kvcache as jkv
+    cfg = jconfigs.get_smoke_config(arch)
+    model = jmake_model(cfg)
+    seen = set()
+    with _recording(jcommon, seen):
+        params = jax.eval_shape(model.init, jax.random.PRNGKey(0))
+        train = jshp.batch_specs(cfg, jshp.ShapeSpec(
+            "t", "train", SITE_S, SITE_B), jnp.float32)
+        jax.eval_shape(model.forward, params, train)
+        jax.eval_shape(lambda p, b: model.prefill(p, b, SITE_T), params,
+                       train)
+        cache = jshp.cache_specs(model, jshp.ShapeSpec(
+            "d", "decode", SITE_T, SITE_B))
+        jax.eval_shape(model.decode_step, params, cache,
+                       jax.ShapeDtypeStruct((SITE_B,), jnp.int32))
+        if _flash_applies(cfg):
+            jattn.attention_prefill_cached(
+                jattn.init_attention(jax.random.PRNGKey(0), "a", cfg), cfg,
+                jnp.zeros((SITE_B, SITE_C, cfg.d_model)),
+                jkv.init_attn_cache(cfg, SITE_B, SITE_T),
+                jnp.zeros((SITE_B,), jnp.int32), impl="pallas")
+    return seen
+
+
+def _port_sites(arch) -> set:
+    """The port's same runs on zeros on the CPU; its flash branch runs on
+    the plain version of the kernel."""
+    from unittest import mock
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch import shapes as tshp
+    from repro_torch.models import attention as tattn
+    from repro_torch.models import common as tcommon
+    cfg = tconfigs.get_smoke_config(arch)
+    model = make_model(cfg, device="cpu")
+    params = model.init(0)
+    train = {k: torch.zeros(v.shape, dtype=v.dtype)
+             for k, v in tshp.batch_specs(cfg, tshp.ShapeSpec(
+                 "t", "train", SITE_S, SITE_B), torch.float32).items()}
+    flash = kops.flash_prefill_attention
+    seen = set()
+    with _recording(tcommon, seen), torch.no_grad():
+        model.forward(params, train)
+        _, cache = model.prefill(params, train, SITE_T)
+        model.decode_step(params, cache, torch.zeros(SITE_B,
+                                                     dtype=torch.long))
+        if _flash_applies(cfg):
+            attn_p = next(lp["attn"] for lp in params["layers"]
+                          if "attn" in lp)
+            with mock.patch.object(kops, "resolve_impl",
+                                   lambda impl, x: "cuda"), \
+                    mock.patch.object(
+                        kops, "flash_prefill_attention",
+                        lambda *a, impl=None, **kw: flash(*a, impl="plain",
+                                                          **kw)):
+                tattn.attention_prefill_cached(
+                    attn_p, cfg, torch.zeros(SITE_B, SITE_C, cfg.d_model),
+                    kvcache.init_attn_cache(cfg, SITE_B, SITE_T, "cpu"),
+                    torch.zeros(SITE_B, dtype=torch.int32))
+    return seen
+
+
+@pytest.fixture(scope="module")
+def site_records():
+    return {arch: (_jax_sites(arch), _port_sites(arch))
+            for arch in tconfigs.ARCH_IDS}
+
+
+def test_every_jax_site_has_its_counterpart(site_records):
+    """Across the 10 smoke configs, JAX's 17 ``shard`` sites are reached,
+    and the port annotates at the same functions with the same logical
+    axes."""
+    jax_sites = {(f, a) for j, _ in site_records.values() for f, a, _ in j}
+    port_sites = {(f, a) for _, t in site_records.values() for f, a, _ in t}
+    assert jax_sites == SITES
+    assert port_sites == SITES
+
+
+@pytest.mark.parametrize("arch", tconfigs.ARCH_IDS)
+def test_activation_sites_place_as_jax(site_records, arch):
+    """Every ``shard`` call of the arch's train forward, prefill, decode
+    step and flash chunk has JAX's counterpart (function, logical axes
+    and shape). Under each rule set on the (2, 4) and (2, 2, 2) meshes
+    the port's constraint places it as JAX's ``logical_to_spec`` does:
+    the spec, and the placements of the DTensor that the installed
+    constraint returns (on a ``fake`` group of 8 ranks)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from repro_torch.launch import mesh as msh
+    from repro_torch.models import common as tcommon
+    jax_seen, port_seen = site_records[arch]
+    assert port_seen == jax_seen
+    for sizes, names in MESHES[1:]:
+        jmesh = AbstractMesh(sizes, names)
+        with msh.fake_world(8):
+            mesh = msh.device_mesh(msh.make_mesh(sizes, names))
+            for rname in SITE_RULES:
+                jr, tr = getattr(jshd, rname), getattr(shd, rname)
+                with shd.activate(mesh, tr):
+                    for fn, axes, shape in sorted(port_seen, key=str):
+                        want = _norm(jshd.logical_to_spec(jmesh, jr, axes,
+                                                          shape))
+                        got = shd.logical_to_spec(mesh, tr, axes, shape)
+                        assert _norm(got) == want, (fn, axes, shape, rname)
+                        x = DTensor.from_local(
+                            torch.zeros(shape), mesh,
+                            [Replicate()] * len(names), run_check=False)
+                        out = tcommon.shard(x, *axes)
+                        if len(shape) != len(axes):     # passes, as in JAX
+                            assert out is x, (fn, axes, shape)
+                            continue
+                        placed = shd.placements(
+                            want + (None,) * (len(shape) - len(want)), mesh)
+                        assert tuple(out.placements) == placed, (
+                            fn, axes, shape, rname, names)
+                        assert out.shape == x.shape
+
+
+def test_constraint_semantics_and_activate_undone(mesh1):
+    """Installed rules redistribute a DTensor of the annotation's rank and
+    pass a plain tensor, and a DTensor of another rank, unchanged;
+    ``activate`` uninstalls also when its body raises."""
+    from torch.distributed.tensor import DTensor, Replicate
+    from repro_torch.models import common as tcommon
+    plain = torch.arange(6.0).reshape(2, 3)
+    dt = DTensor.from_local(plain, mesh1, [Replicate(), Replicate()],
+                            run_check=False)
+    with shd.activate(mesh1, shd.SERVE_RULES):
+        assert tcommon.shard(plain, "batch", "embed") is plain
+        assert tcommon.shard(dt, "batch", "seq", "embed") is dt  # rank 3
+        out = tcommon.shard(dt, "batch", "vocab")
+        assert out is not dt and torch.equal(out.full_tensor(), plain)
+        assert out.placements[0].is_shard(0)        # "batch" on "data"
+    assert tcommon.shard(dt, "batch", "vocab") is dt
+    with pytest.raises(ZeroDivisionError):
+        with shd.activate(mesh1, shd.TRAIN_RULES_SP):
+            assert tcommon.shard(dt, "batch", "vocab") is not dt
+            1 / 0
+    assert tcommon.shard(dt, "batch", "vocab") is dt
+
+
+def test_plain_tensors_untouched_under_rules():
+    """With rules installed (the sequence-parallel serving rules on a
+    (2, 4) mesh), the serve, train and AFD paths on CPU tensors give the
+    bits of the run without them: granite's ``Model.prefill`` and
+    ``decode_step``, one ``build_step_fn`` step, and the AFD engine over
+    a seeded trace (its summary and every output token)."""
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.parallel.afd import AFDRuntime
+    from repro_torch.serving.afd_engine import AFDServeEngine
+    from repro_torch.serving.workload import generate_trace, get_profile
+    from repro_torch.training import optimizer as topt
+    from repro_torch.training.train import build_step_fn
+    cfg = tconfigs.get_smoke_config("granite-moe-1b-a400m")
+    toks = torch.from_numpy(np.random.default_rng(6).integers(
+        1, cfg.vocab_size, (2, 6)).astype(np.int64))
+
+    def run():
+        model = make_model(cfg, device="cpu")
+        params = model.init(0)
+        lg, cache = model.prefill(params, {"tokens": toks}, 16)
+        lg1, cache = model.decode_step(params, cache, toks[:, 0])
+        opt = topt.adamw()
+        new_p, _, m = build_step_fn(model, opt)(params, opt.init(params),
+                                                {"tokens": toks})
+        eng = AFDServeEngine(AFDRuntime(cfg, params, device="cpu"),
+                             max_len=32, n_bo=2, mb_slots=2,
+                             tick_seconds=0.01)
+        eng.run(generate_trace(get_profile("poisson-burst"), seed=0,
+                               max_requests=4))
+        return ([lg, lg1, m["loss"], m["grad_norm"]] + tree_leaves(cache)
+                + tree_leaves(new_p), eng.summary(),
+                {r.rid: r.output for r in eng.completed})
+
+    want = run()
+    with shd.activate(shd.MeshShape(("data", "model"), (2, 4)),
+                      shd.SERVE_RULES_SP):
+        got = run()
+    assert len(got[0]) == len(want[0])
+    assert all(torch.equal(g, w) for g, w in zip(got[0], want[0]))
+    assert got[1:] == want[1:] and len(got[2]) == 4
 
 
 # ---------------------------------------------------------------------------
