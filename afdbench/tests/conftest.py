@@ -1,0 +1,10 @@
+"""The benchmark's tests import ``afdbench`` from the repository root and
+the program from ``src``."""
+
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[2]
+for p in (ROOT, ROOT / "src"):
+    if str(p) not in sys.path:
+        sys.path.insert(0, str(p))
