@@ -44,6 +44,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch import trace
 from repro_torch.kernels import ops as kops
 from repro_torch.models import kvcache
 from repro_torch.models.common import (ArchConfig, gathered, is_dtensor,
@@ -286,7 +287,10 @@ def attention_prefill_cached(params, cfg: ArchConfig, x: torch.Tensor,
         k_new = apply_rope(k_new, positions, cfg.rope_theta)
     cache = kvcache.write_kv_chunk(cfg, cache, k_new, v_new, pos)
     t = cache["k"].shape[1]
-    starts = pos.tolist() if kops.resolve_impl(impl, x) == "cuda" else []
+    starts = []
+    if kops.resolve_impl(impl, x) == "cuda":
+        starts = pos.tolist()
+        trace.count("sync.attn_prefill_starts")
     if (starts and cfg.sliding_window is None
             and all(p == starts[0] for p in starts)):
         off = starts[0]

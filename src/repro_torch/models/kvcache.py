@@ -36,6 +36,7 @@ from typing import Dict
 
 import torch
 
+from repro_torch import trace
 from repro_torch.models.common import (ArchConfig, LayerSpec, is_dtensor,
                                        shard, tree_bytes)
 
@@ -138,6 +139,7 @@ def write_kv_chunk(cfg: ArchConfig, cache: Cache, k_new: torch.Tensor,
     for name, new in (("k", k_new), ("v", v_new)):
         plane = cache[name]
         plane[bidx[keep], slot[keep]] = new.to(plane.dtype)[keep]
+        trace.count("sync.kv_chunk_mask", 3)  # each mask index is a nonzero
     return cache
 
 

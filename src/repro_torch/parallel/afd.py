@@ -26,6 +26,13 @@ layer's mixer runs on the A role with an O(1) recurrent state, and its
 chunked prefill steps the decode recurrence over the chunk, as the JAX
 runtime does. Dense architectures have no routed experts: ``AFDRuntime``
 refuses them.
+
+Under a ``repro_torch.trace`` tracer each piece of the cycle is a span:
+``afd.a.mixer`` (one layer's decode mixer for one micro-batch),
+``afd.a.attn_chunk`` / ``afd.a.mamba_chunk`` (a prefill chunk's mixer;
+``mamba.steps`` counts the stepped tokens), ``afd.a.route``,
+``afd.dispatch``, ``afd.f.experts`` (one per F block), ``afd.combine``,
+``afd.a.dense`` (dense FFNs and shared experts) and ``afd.a.head``.
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ from typing import List, Optional, Sequence
 
 import torch
 
+from repro_torch import trace
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import kvcache, mamba2, moe as moe_mod
 from repro_torch.models.common import ArchConfig, LayerSpec, resolve_device
@@ -151,68 +159,83 @@ class AFDRuntime:
     # ---- per-layer A-role pieces -------------------------------------------
 
     def _mixer(self, lp, spec: LayerSpec, x, cache, pos):
-        h = apply_norm(lp["ln1"], self.cfg, x)
-        if spec.kind == "attn":
-            mix, nc = attn_mod.attention_decode(lp["attn"], self.cfg, h,
-                                                cache, pos, impl=self.impl)
-        else:
-            mix, nc = mamba2.mamba_decode(lp["mamba"], self.cfg, h, cache)
-        return x + mix, nc
+        with trace.span("afd.a.mixer"):
+            h = apply_norm(lp["ln1"], self.cfg, x)
+            if spec.kind == "attn":
+                mix, nc = attn_mod.attention_decode(lp["attn"], self.cfg, h,
+                                                    cache, pos, impl=self.impl)
+            else:
+                mix, nc = mamba2.mamba_decode(lp["mamba"], self.cfg, h, cache)
+            return x + mix, nc
 
     def _mixer_chunk(self, lp, spec: LayerSpec, x, cache, pos):
-        h = apply_norm(lp["ln1"], self.cfg, x)
         if spec.kind == "attn":
-            mix, nc = attn_mod.attention_prefill_cached(
-                lp["attn"], self.cfg, h, cache, pos, impl=self.impl)
-            return x + mix, nc
+            with trace.span("afd.a.attn_chunk"):
+                h = apply_norm(lp["ln1"], self.cfg, x)
+                mix, nc = attn_mod.attention_prefill_cached(
+                    lp["attn"], self.cfg, h, cache, pos, impl=self.impl)
+                return x + mix, nc
         # The SSM recurrence has no cached-state batched form here: step
         # the chunk token by token, bit-identical to decode (each token is
         # made contiguous, as decode's is: a strided operand takes another
         # CPU GEMM path). The M2N saving lives in the MoE dispatch.
-        outs = []
-        for j in range(x.shape[1]):
-            mj, cache = mamba2.mamba_decode(lp["mamba"], self.cfg,
-                                            h[:, j:j + 1].contiguous(), cache)
-            outs.append(mj)
-        return x + torch.cat(outs, dim=1), cache
+        with trace.span("afd.a.mamba_chunk"):
+            h = apply_norm(lp["ln1"], self.cfg, x)
+            trace.count("mamba.steps", x.shape[1])
+            outs = []
+            for j in range(x.shape[1]):
+                mj, cache = mamba2.mamba_decode(
+                    lp["mamba"], self.cfg, h[:, j:j + 1].contiguous(), cache)
+                outs.append(mj)
+            return x + torch.cat(outs, dim=1), cache
 
     def _ffn_local(self, lp, spec: LayerSpec, x):
         """Dense-MLP layers run wholly on the A role."""
         if spec.moe or "mlp" not in lp:
             return x
-        h = apply_norm(lp["ln2"], self.cfg, x)
-        return x + apply_mlp(lp["mlp"], self.cfg, h)
+        with trace.span("afd.a.dense"):
+            h = apply_norm(lp["ln2"], self.cfg, x)
+            return x + apply_mlp(lp["mlp"], self.cfg, h)
 
     # ---- the M2N cycle -------------------------------------------------------
 
     def _moe_cycle(self, lp, f_shards, x):
         """Norm → route (A) → dispatch → expert FFN (F) → combine (A)."""
         cfg = self.cfg
-        h = apply_norm(lp["ln2"], cfg, x)
-        tokens = h.reshape(-1, cfg.d_model)
-        _, topw, topi = moe_mod.route(lp["moe"], cfg, tokens)
+        with trace.span("afd.a.route"):
+            h = apply_norm(lp["ln2"], cfg, x)
+            tokens = h.reshape(-1, cfg.d_model)
+            _, topw, topi = moe_mod.route(lp["moe"], cfg, tokens)
 
         # dispatch: M2N transfer A → F. Gating metadata is priced at 4 bytes
         # per index and per weight, as the Eq. 9/17 predictor assumes.
-        self.stats.record(tokens.shape[0], cfg.d_model,
-                          tokens.element_size(),
-                          topi.numel() * 4 + topw.numel() * 4)
+        blocks = f_shards if self.experts_sharded else f_shards[:1]
+        with trace.span("afd.dispatch"):
+            self.stats.record(tokens.shape[0], cfg.d_model,
+                              tokens.element_size(),
+                              topi.numel() * 4 + topw.numel() * 4)
+            sent = [(tokens.to(dev), topw.to(dev), topi.to(dev))
+                    for dev, _ in zip(self.f_devices, blocks)]
 
         # F role: the grouped GEMM kernel, dispatch gather and combine
         # unpermute fused into it; one program per expert block, whose
         # partial outputs sum on the A device (combine: F → A)
-        routed = None
-        blocks = f_shards if self.experts_sharded else f_shards[:1]
-        for j, (dev, w) in enumerate(zip(self.f_devices, blocks)):
-            part = moe_mod.expert_ffn(
-                cfg, w["wi"], w["wo"], tokens.to(dev), topw.to(dev),
-                topi.to(dev), self.impl,
-                first_expert=j * w["wi"].shape[0]).to(self.a_device)
-            routed = part if routed is None else routed + part
+        parts = []
+        for j, (w, (tk, tw, ti)) in enumerate(zip(blocks, sent)):
+            with trace.span("afd.f.experts"):
+                parts.append(moe_mod.expert_ffn(
+                    cfg, w["wi"], w["wo"], tk, tw, ti, self.impl,
+                    first_expert=j * w["wi"].shape[0]))
 
-        out = x + routed.reshape(x.shape)
+        with trace.span("afd.combine"):
+            routed = None
+            for part in parts:
+                part = part.to(self.a_device)
+                routed = part if routed is None else routed + part
+            out = x + routed.reshape(x.shape)
         if "shared" in lp["moe"]:
-            out = out + apply_mlp(lp["moe"]["shared"], cfg, h)
+            with trace.span("afd.a.dense"):
+                out = out + apply_mlp(lp["moe"]["shared"], cfg, h)
         return out
 
     def _ffn(self, i: int, spec: LayerSpec, x):
@@ -222,9 +245,10 @@ class AFDRuntime:
         return self._ffn_local(lp, spec, x)
 
     def _head(self, x):
-        x = apply_norm(self.a_params["final_norm"], self.cfg, x)
-        return apply_lm_head(self.a_params["lm_head"],
-                             self.a_params["embed"], self.cfg, x)
+        with trace.span("afd.a.head"):
+            x = apply_norm(self.a_params["final_norm"], self.cfg, x)
+            return apply_lm_head(self.a_params["lm_head"],
+                                 self.a_params["embed"], self.cfg, x)
 
     # ---- public decode ---------------------------------------------------------
 

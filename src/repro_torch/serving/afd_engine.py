@@ -22,7 +22,15 @@ are recorded in the window stream.
 
 The clock is virtual and deterministic by default (a fixed tick duration,
 or an injected latency stream ``tick_latencies``); ``tick_seconds=None``
-uses the wall clock, synchronising the device before each reading.
+uses the wall clock: a tick counts from its start (admission included)
+through the read-back of its tokens and the splice of finished prefills,
+synchronising the device before the reading. A tick's requests are
+stamped (``t_first``, ``t_done``) with the clock after it.
+
+Under a ``repro_torch.trace`` tracer each tick is an ``engine.tick`` span
+with its phases (``engine.admit``, ``engine.prefill``, ``engine.rotation``,
+``engine.readback``, ``engine.clock``, ``engine.finish_prefill``) inside,
+and every host wait on the device here is counted (``sync.*``).
 
 The fleet layer (``repro_torch.fleet``) reads the queue and KV
 introspection (``queued_kv_bytes`` and friends) and drains replicas
@@ -40,6 +48,7 @@ from typing import Deque, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.core import planner as pln
 from repro_torch.core.hardware import HardwareSpec
 from repro_torch.core.modelspec import MoEModelSpec
@@ -209,6 +218,7 @@ class AFDServeEngine:
         self.tick_seconds = tick_seconds
         self._latencies = list(tick_latencies) if tick_latencies else None
         self._lat_i = 0
+        self._wall0 = time.perf_counter()   # the running tick's start
         self.window_ticks = window_ticks
 
         self.mbs = [self._fresh_mb() for _ in range(n_bo)]
@@ -253,9 +263,16 @@ class AFDServeEngine:
                            slots=[None] * self.mb_slots)
 
     def _tokens(self, toks) -> torch.Tensor:
+        trace.count("sync.h2d_tokens")        # a pageable upload
         return torch.as_tensor(np.asarray(toks, np.int32), device=self.device)
 
+    @staticmethod
+    def _set_pos(mb: _MicroBatch, slot: int, value: int) -> None:
+        trace.count("sync.pos_write")         # a host scalar, uploaded
+        mb.pos[slot] = value
+
     def _select(self, logits_row: torch.Tensor) -> int:
+        trace.count("sync.select")
         if self.greedy:
             return int(torch.argmax(logits_row))
         p = logits_row.float().cpu().numpy().astype(np.float64)
@@ -325,15 +342,17 @@ class AFDServeEngine:
         return self._predicted(self.stats.decode_ticks,
                                self.stats.prefill_tokens)
 
-    def _tick_duration(self, wall0: float) -> float:
+    def _tick_duration(self) -> float:
         if self._latencies is not None:
             dt = self._latencies[self._lat_i % len(self._latencies)]
             self._lat_i += 1
             return float(dt)
         if self.tick_seconds is not None:
             return self.tick_seconds
-        self.rt.synchronize()
-        return max(time.perf_counter() - wall0, 1e-9)
+        with trace.span("engine.clock"):
+            self.rt.synchronize()
+            trace.count("sync.clock")
+            return max(time.perf_counter() - self._wall0, 1e-9)
 
     # ---- windows -----------------------------------------------------------
 
@@ -457,7 +476,9 @@ class AFDServeEngine:
                     else self._latencies[0])
             self.now += n * base
         else:
-            self.now += max(time.perf_counter() - wall0, 1e-9)
+            dt = max(time.perf_counter() - wall0, 1e-9)
+            self.now += dt
+            self._wall0 += dt             # so the tick's clock skips it
         return caches, pos, first
 
     def _admit(self) -> None:
@@ -488,7 +509,7 @@ class AFDServeEngine:
                 for li in range(len(mb.caches)):
                     splice_batch_slot(mb.caches[li], caches1[li], slot,
                                       self.mb_slots)
-                mb.pos[slot] = len(req.prompt)
+                self._set_pos(mb, slot, len(req.prompt))
                 req.output.append(first)
                 mb.slots[slot] = req
                 mb.tokens[slot] = first
@@ -500,16 +521,18 @@ class AFDServeEngine:
                     req.t_first = self.now
                 if req.done:
                     self._complete(mb, slot)
+                    req.t_done = self.now
 
     def _complete(self, mb: _MicroBatch, slot: int) -> None:
+        """Free the slot of a finished request; the caller stamps its
+        ``t_done``."""
         req = mb.slots[slot]
-        req.t_done = self.now
         self.completed.append(req)
         self._w_completed.append(req)
         self.stats.completed += 1
         mb.slots[slot] = None
         mb.tokens[slot] = PAD
-        mb.pos[slot] = 0
+        self._set_pos(mb, slot, 0)
 
     # ---- chunked prefill (one chunk per tick, FIFO over prefilling slots) ---
 
@@ -537,10 +560,10 @@ class AFDServeEngine:
                 finished.append((mb_i, slot, logits))
         return ran, finished
 
-    def _finish_prefill(self, mb_i: int, slot: int, logits) -> None:
+    def _finish_prefill(self, mb_i: int, slot: int, logits) -> ServeRequest:
         """Splice the prefilled cache into the batch slot (one slab write
         per attention plane; a Mamba layer's whole conv tail and state) and
-        emit the first token this same tick."""
+        emit the first token this same tick, which stamps its ``t_first``."""
         mb = self.mbs[mb_i]
         pf = mb.prefill.pop(slot)
         req = pf.req
@@ -550,17 +573,16 @@ class AFDServeEngine:
             if self.rt.specs[li].kind == "attn" and n_tok < self._kv_ring_len:
                 src = {kk: vv[:, :n_tok] for kk, vv in src.items()}
             splice_batch_slot(mb.caches[li], src, slot, self.mb_slots)
-        mb.pos[slot] = len(req.prompt)
+        self._set_pos(mb, slot, len(req.prompt))
         first = self._select(logits[0, -1])
         req.output.append(first)
         mb.tokens[slot] = first
         self.stats.prefills += 1
         self.stats.tokens_out += 1
         self._w_tokens_out += 1
-        if req.t_first < 0:
-            req.t_first = self.now
         if req.done:
             self._complete(mb, slot)
+        return req
 
     # ---- fleet drain hooks -------------------------------------------------
 
@@ -578,7 +600,7 @@ class AFDServeEngine:
                 e for e in self._prefill_fifo if e != (mb_i, slot))
         mb.slots[slot] = None
         mb.tokens[slot] = PAD
-        mb.pos[slot] = 0          # in place: this micro-batch's own tensor
+        self._set_pos(mb, slot, 0)    # in place: this micro-batch's own tensor
         return req
 
     def simulate_failure(self, frac_nodes_lost: float, replan=None) -> int:
@@ -618,8 +640,8 @@ class AFDServeEngine:
 
     def resubmit(self, req: ServeRequest) -> None:
         """Re-admit a drained request: generation restarts, ``t_arrive``
-        and ``t_first`` stay (``_admit`` and ``_finish_prefill`` stamp
-        ``t_first`` only while it is unset), so TTFT spans the outage."""
+        and ``t_first`` stay (``_admit`` and ``tick`` stamp ``t_first`` only
+        while it is unset), so TTFT spans the outage."""
         req.output.clear()
         self.queue.append(req)
 
@@ -629,34 +651,63 @@ class AFDServeEngine:
         """One engine tick: at most ``max_chunks_per_tick`` prompt chunks
         interleaved with the 3BO decode rotation. Returns the number of
         work units served (decode-live slots + prefill chunks run)."""
-        self._drain_arrivals()
-        self._admit()
-        wall0 = time.perf_counter()
+        self._wall0 = time.perf_counter()
+        with trace.span("engine.tick"):
+            return self._tick()
+
+    def _tick(self) -> int:
+        with trace.span("engine.admit"):
+            self._drain_arrivals()
+            self._admit()
+        n_done = len(self.completed)
 
         ran_prefill, finished = 0, []
         if self.prefill_policy is not None and self._prefill_fifo:
-            ran_prefill, finished = self._prefill_tick()
+            with trace.span("engine.prefill"):
+                ran_prefill, finished = self._prefill_tick()
 
         decode_live = self.decode_live_count()
         if decode_live == 0 and ran_prefill == 0:
             return 0
 
-        outs = None
         if decode_live:
-            outs = self.rt.decode_step_3bo(
-                [(self._tokens(mb.tokens), mb.caches, mb.pos)
-                 for mb in self.mbs], n_bo=self.n_bo)
+            with trace.span("engine.rotation"):
+                outs = self.rt.decode_step_3bo(
+                    [(self._tokens(mb.tokens), mb.caches, mb.pos)
+                     for mb in self.mbs], n_bo=self.n_bo)
+            self._read_back(outs)
 
-        dt = self._tick_duration(wall0)
+        started = []
+        if finished:
+            with trace.span("engine.finish_prefill"):
+                started = [self._finish_prefill(mb_i, slot, logits)
+                           for mb_i, slot, logits in finished]
+
+        dt = self._tick_duration()
         self.now += dt
         if self.scheduler is not None:
             self.scheduler.observe(dt)
+        for req in started:
+            if req.t_first < 0:
+                req.t_first = self.now
+        for req in self.completed[n_done:]:
+            req.t_done = self.now
 
-        if outs is not None:
+        self.stats.engine_ticks += 1
+        self._w_ticks += 1
+        if self._w_ticks >= self.window_ticks:
+            self._close_window()
+        return decode_live + ran_prefill
+
+    def _read_back(self, outs) -> None:
+        """The rotation's results into the micro-batches, its next tokens
+        to their requests, and the slots of requests that ended freed."""
+        with trace.span("engine.readback"):
             for mb, (logits, caches, pos) in zip(self.mbs, outs):
                 mb.caches, mb.pos = caches, pos
                 nxt = torch.argmax(logits, dim=-1).cpu().numpy()
                 pos_now = pos.cpu().numpy()
+                trace.count("sync.readback", 2)
                 for i in mb.live():
                     req = mb.slots[i]
                     tok = (int(nxt[i]) if self.greedy
@@ -669,15 +720,6 @@ class AFDServeEngine:
                         self._complete(mb, i)
             self.stats.decode_ticks += 1
             self._w_decode_ticks += 1
-
-        for mb_i, slot, logits in finished:
-            self._finish_prefill(mb_i, slot, logits)
-
-        self.stats.engine_ticks += 1
-        self._w_ticks += 1
-        if self._w_ticks >= self.window_ticks:
-            self._close_window()
-        return decode_live + ran_prefill
 
     # ---- the serve loop ----------------------------------------------------
 
