@@ -50,7 +50,12 @@ Phases, each of which fails the run by raising:
    seeded trace with chunked prefill, on the wall clock, with no policy
    loop. Every request must complete, measured M2N bytes must equal the
    Eq. 9/17 prediction, and each kernel's launch count over this run must
-   equal one launch per layer of every cycle.
+   equal one launch per layer of every cycle that Python enqueued: the
+   counters see no rotation replayed from its CUDA graph (the runtime
+   counts those). So four ticks of the serve are traced with
+   ``torch.profiler``, and the card's own count of each kernel there, by
+   name, must equal one per layer of every cycle they ran, replayed or
+   not, and twice the M2N cycles recorded for the grouped GEMM.
 5. Path check at full width: one 64-token prefill chunk and 4 decode steps
    through the kernels and through the plain versions; the logits must
    agree within the bf16 tolerance stated below.
@@ -236,7 +241,8 @@ With ``--profile`` a last phase (16) times 12 steady engine ticks (16
 sequences, prefill chunks interleaved with decode), traces the same ticks
 with ``torch.profiler`` and prints the device's busy share of the wall
 clock and its time by kernel; it fails unless split-KV ran one device
-kernel per wrapper call.
+kernel per wrapper call and one per attention layer and micro-batch of
+each replayed rotation.
 
 The last lines are the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -287,6 +293,11 @@ SOURCES = {"grouped_gemm_int8": "grouped_gemm", "grouped_gemm_int4": "grouped_ge
 # the kernels of the serving path (the quantized modes are not on it; int8
 # is on phase 15's dry-run)
 PATH_KERNELS = ("grouped_gemm", "flash_prefill", "splitkv_attention")
+# the path kernels' device functions, by a part of their names (the int8 and
+# int4 modes of the grouped GEMM are not told apart by name)
+KERNEL_NAMES = {"grouped_gemm": "grouped_gemm_",
+                "flash_prefill": "flash_prefill_",
+                "splitkv_attention": "splitkv_"}
 INT4_BLOCK_N = 128
 SPILL = re.compile(r"[1-9]\d* bytes spill (stores|loads)")
 
@@ -1316,6 +1327,7 @@ def serve(torch, cfg, params, card):
     trace = generate_trace(profile, seed=0, max_requests=24)
     eng = AFDServeEngine(rt, max_len=1024, n_bo=2, mb_slots=8,
                          prefill_chunk=64, tick_seconds=None)
+    sample = traced_ticks(torch, eng, first=40, n=4)
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     eng.run(trace, max_ticks=20_000)
@@ -1332,37 +1344,119 @@ def serve(torch, cfg, params, card):
         f"mean TPOT {s['tpot_mean']:.4f} s; bytes_match_all "
         f"{s['bytes_match_all']} (dispatch {s['dispatch_bytes']} B, combine "
         f"{s['combine_bytes']} B)")
-    log(f"  launches: {launches} (per engine tick: "
+    log(f"  launches enqueued from Python: {launches} (per engine tick: "
         + ", ".join(f"{k} {v / s['engine_ticks']:.2f}"
-                    for k, v in launches.items()) + ")")
+                    for k, v in launches.items()) + f"); {rt.replays} of "
+        f"{s['decode_ticks']} rotations replayed from a CUDA graph")
+    log(f"  on the card over {sample.get('engine_ticks')} engine ticks from "
+        f"the 40th (torch.profiler): "
+        f"{sample.get('device')} for {sample.get('decode_ticks')} decode "
+        f"ticks ({sample.get('replays')} replayed), "
+        f"{sample.get('prefill_chunks')} prefill chunks, "
+        f"{sample.get('cycles')} M2N cycles")
     log("  serve_summary " + json.dumps({**s, "wall_s": wall,
-                                         "launches": launches},
+                                         "launches": launches,
+                                         "replays": rt.replays,
+                                         "traced_ticks": sample},
                                         default=float))
     if s["completed"] != len(trace):
         raise AssertionError(f"only {s['completed']}/{len(trace)} requests "
                              "completed")
     if not s["bytes_match_all"]:
         raise AssertionError("measured M2N bytes diverged from Eq. 9/17")
-    check_path_launches(launches, s, eng.rt.specs, eng.n_bo)
-    return launches
+    check_path_launches(launches, s, eng.rt.specs, eng.n_bo, rt.replays)
+    check_device_launches(sample, eng.rt.specs, eng.n_bo)
+    return launches, sample
 
 
-def check_path_launches(launches, s, specs, n_bo) -> None:
-    """Every layer of every decode micro-batch and every prefill chunk went
-    through the kernels: one split-KV launch per attention layer of each
-    decode micro-batch, one flash launch per attention layer of each
-    prefill chunk, a gate|up + down pair per MoE layer of both; and no
-    quantized launch (the serving path holds dense weights)."""
+def traced_ticks(torch, eng, first: int, n: int) -> dict:
+    """Trace engine ticks ``first`` to ``first + n - 1`` of ``eng``'s run
+    with ``torch.profiler`` (``eng.tick`` is wrapped until they have run).
+    The dict returned is filled then: the path's kernels the card ran
+    (``device``, by ``KERNEL_NAMES``) and what the engine counted over
+    those ticks: engine and decode ticks, prefill chunks, rotations
+    replayed and M2N cycles."""
+    from torch.profiler import ProfilerActivity, profile
+    out, before = {}, {}
+    prof = profile(activities=[ProfilerActivity.CUDA])
+
+    def counts():
+        return {"engine_ticks": eng.stats.engine_ticks,
+                "decode_ticks": eng.stats.decode_ticks,
+                "prefill_chunks": eng.stats.prefill_chunks,
+                "replays": eng.rt.replays,
+                "cycles": eng.rt.stats.dispatches}
+
+    def tick():
+        if not before and eng.stats.engine_ticks == first:
+            before.update(counts())
+            prof.start()
+        done = type(eng).tick(eng)
+        if before and eng.stats.engine_ticks >= first + n:
+            eng.rt.synchronize()
+            prof.stop()
+            del eng.tick
+            out.update({k: v - before[k] for k, v in counts().items()})
+            out["device"] = device_launches(torch, prof)
+        return done
+    eng.tick = tick
+    return out
+
+
+def device_launches(torch, prof) -> dict:
+    """The path's kernels the card ran in a ``torch.profiler`` trace,
+    counted by name."""
+    from torch.autograd import DeviceType
+    names = [e.name for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    return {k: sum(part in name for name in names)
+            for k, part in KERNEL_NAMES.items()}
+
+
+def check_device_launches(sample, specs, n_bo) -> None:
+    """The ticks ``traced_ticks`` traced replayed every rotation they ran,
+    and the card ran one split-KV per attention layer of each decode
+    micro-batch, one flash per attention layer of each prefill chunk and
+    a gate|up + down pair per MoE layer of both: two grouped GEMMs for
+    each M2N cycle recorded."""
+    if "device" not in sample:
+        raise AssertionError("the serve ended before its traced ticks")
+    want = path_launches(specs, sample["decode_ticks"] * n_bo,
+                         sample["prefill_chunks"])
+    got = sample["device"]
+    if not 0 < sample["replays"] == sample["decode_ticks"]:
+        raise AssertionError(f"traced ticks replayed {sample['replays']} of "
+                             f"{sample['decode_ticks']} rotations")
+    if (got != {k: want[k] for k in got}
+            or got["grouped_gemm"] != 2 * sample["cycles"]):
+        raise AssertionError(f"the card ran {got} over the traced ticks, "
+                             f"not {want} ({sample['cycles']} M2N cycles)")
+
+
+def path_launches(specs, steps: int, chunks: int) -> dict:
+    """The launches of ``steps`` decode micro-batches and ``chunks``
+    prefill chunks: one split-KV per attention layer of each decode
+    micro-batch, one flash per attention layer of each prefill chunk, a
+    gate|up + down pair per MoE layer of both; and no quantized launch
+    (the serving path holds dense weights)."""
+    attn = sum(1 for sp in specs if sp.kind == "attn")
+    moe = sum(1 for sp in specs if sp.moe)
+    return {"grouped_gemm": 2 * moe * (steps + chunks),
+            "grouped_gemm_int8": 0, "grouped_gemm_int4": 0,
+            "flash_prefill": attn * chunks,
+            "splitkv_attention": attn * steps}
+
+
+def check_path_launches(launches, s, specs, n_bo, replays) -> None:
+    """Every layer of every decode micro-batch and every prefill chunk that
+    Python enqueued went through the kernels (``path_launches``). The
+    counters count launches as Python issues them: the ``replays``
+    rotations replayed from a CUDA graph issued none."""
     missing = [k for k in PATH_KERNELS if launches[k] <= 0]
     if missing:
         raise AssertionError(f"main path never launched {missing}")
-    attn = sum(1 for sp in specs if sp.kind == "attn")
-    moe = sum(1 for sp in specs if sp.moe)
-    steps = s["decode_ticks"] * n_bo
-    expected = {"grouped_gemm": 2 * moe * (steps + s["prefill_chunks"]),
-                "grouped_gemm_int8": 0, "grouped_gemm_int4": 0,
-                "flash_prefill": attn * s["prefill_chunks"],
-                "splitkv_attention": attn * steps}
+    expected = path_launches(specs, (s["decode_ticks"] - replays) * n_bo,
+                             s["prefill_chunks"])
     if launches != expected:
         raise AssertionError(f"launch counts {launches} != {expected}")
 
@@ -1432,7 +1526,7 @@ def policy_loop(torch, cfg, params, card) -> None:
             raise AssertionError(f"window {w.window}: measured HFU "
                                  f"{w.hfu_measured} above the plan's "
                                  f"{w.hfu_predicted}")
-    check_path_launches(launches, s, eng.rt.specs, eng.n_bo)
+    check_path_launches(launches, s, eng.rt.specs, eng.n_bo, eng.rt.replays)
 
 
 def fleet(torch, cfg, params, card) -> None:
@@ -1508,13 +1602,11 @@ def fleet(torch, cfg, params, card) -> None:
             raise AssertionError(f"rescale event {e} disagrees with the "
                                  f"planner's N_F {want}")
     # legacy prefill runs each prompt token as a one-sequence decode step,
-    # so every engine step is one split-KV launch per attention layer and a
+    # so every engine step Python enqueued (a rotation replayed from a CUDA
+    # graph is not) is one split-KV launch per attention layer and a
     # gate|up + down pair per MoE layer
-    attn = sum(1 for sp in engines[0].rt.specs if sp.kind == "attn")
-    moe = sum(1 for sp in engines[0].rt.specs if sp.moe)
-    expected = {"grouped_gemm": 2 * moe * steps, "grouped_gemm_int8": 0,
-                "grouped_gemm_int4": 0, "flash_prefill": 0,
-                "splitkv_attention": attn * steps}
+    replayed = sum(e.rt.replays * e.n_bo for e in engines)
+    expected = path_launches(engines[0].rt.specs, steps - replayed, 0)
     if launches != expected:
         raise AssertionError(f"fleet launches {launches} != {expected}")
 
@@ -1584,7 +1676,9 @@ def fleet_path_check(torch, cfg, params, rt) -> None:
     ``decode_step`` per prompt token into a 32-slot cache), then a 2-slot
     micro-batch through ``decode_step_3bo`` up to length 32, its second
     slot reset to position 0 halfway as a drain leaves it. The logits are
-    held to phase 5's relative error.
+    held to phase 5's relative error; the runtime's own rotation, replayed
+    from a CUDA graph after its second step, is held bit for bit to its
+    eager rotation, which the comparisons below use.
 
     To show where that error comes from, a third run takes the same bf16
     weights in float32 on the plain path, and every router call is
@@ -1599,14 +1693,20 @@ def fleet_path_check(torch, cfg, params, rt) -> None:
                          device="cuda", dtype=torch.int32)
     cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
     params32 = tree_map(lambda t: t.float(), params)
+    # "kernels" runs the rotation eager, so that every router call is
+    # recorded; "graph" is the same runtime as it serves, the rotation
+    # replayed from a CUDA graph from its second step on
     runs = {"kernels": rt, "plain": AFDRuntime(cfg, params, impl="plain"),
             "plain_f32": AFDRuntime(cfg32, params32, impl="plain"),
-            "replay": AFDRuntime(cfg, params, impl="plain")}
+            "replay": AFDRuntime(cfg, params, impl="plain"), "graph": rt}
     results, calls = {}, {}
     for name, runtime in runs.items():
         out = []
-        with recording_routes(calls.setdefault(name, []),
-                              calls["kernels"] if name == "replay" else None):
+        rotate = (runtime.decode_step_3bo if name == "graph" else
+                  lambda mbs, n_bo, runtime=runtime: runtime._rotation(mbs))
+        with (contextlib.nullcontext() if name == "graph" else
+              recording_routes(calls.setdefault(name, []), calls["kernels"]
+                               if name == "replay" else None)):
             caches, pos = runtime.init_cache(1, 32)
             for j in range(12):
                 lg, caches, pos = runtime.decode_step(toks[0, j:j + 1],
@@ -1616,11 +1716,17 @@ def fleet_path_check(torch, cfg, params, rt) -> None:
             for j in range(32):
                 if j == 16:
                     pos[1] = 0
-                ((lg, caches, pos),) = runtime.decode_step_3bo(
+                ((lg, caches, pos),) = rotate(
                     [(toks[:, j], caches, pos)], n_bo=1)
                 out.append(lg)
         results[name] = [o.float() for o in out]
     del runs, params32
+    if not all(torch.equal(a, b) for a, b in zip(results["graph"],
+                                                 results["kernels"])):
+        raise AssertionError("the rotation replayed from a CUDA graph "
+                             "differs from the same rotation run eager")
+    log("  the rotation replayed from a CUDA graph (steps 2-32): logits "
+        "bit-identical to the same runtime's eager rotation")
 
     def rel(a, b):
         return float((torch.cat(a) - torch.cat(b)).norm()
@@ -1877,7 +1983,7 @@ def jamba_serve(torch, card) -> None:
     if not all(w.bytes_match for w in eng.windows):
         raise AssertionError("Jamba: measured M2N bytes diverged from "
                              "Eq. 9/17")
-    check_path_launches(launches, s, specs, eng.n_bo)
+    check_path_launches(launches, s, specs, eng.n_bo, rt.replays)
     # where a tick's wall clock goes: one 64-token chunk of one sequence
     # (the 14 Mamba layers step it token by token) and one decode rotation
     # of both micro-batches, each timed alone (median of 3, synchronised)
@@ -3092,7 +3198,11 @@ def afd_four_f_blocks(torch, cfg, card) -> dict:
                                                           max_ticks=20_000))
         wall = time.perf_counter() - t0
         s = eng.summary()
-        per_cycle = launches["grouped_gemm"] / rt.stats.dispatches
+        # the M2N cycles Python enqueued: a replayed rotation launches
+        # from its graph, which the counters do not see
+        moe = sum(1 for sp in rt.specs if sp.moe)
+        per_cycle = launches["grouped_gemm"] / (
+            rt.stats.dispatches - rt.replays * eng.n_bo * moe)
         log(f"  N_F {n_f}: {s['completed']}/{len(trace)} completed, "
             f"{s['tokens_out']} tokens in {wall:.2f} s wall, "
             f"{rt.stats.dispatches} M2N cycles, bytes_match_all "
@@ -4182,12 +4292,16 @@ def profile_ticks(torch, cfg, params, n_ticks: int = 12,
     del eng
     eng = _steady_engine(cfg, params, warm_ticks)
     ops.reset_launch_counts()
+    replays = eng.rt.replays
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(n_ticks):
             eng.tick()
         eng.rt.synchronize()
     calls = ops.launch_counts()["splitkv_attention"]
+    replays = eng.rt.replays - replays
+    replayed = replays * eng.n_bo * sum(sp.kind == "attn"
+                                        for sp in eng.rt.specs)
     rows = sorted(((ev.self_device_time_total / 1e3, ev.count, ev.key)
                    for ev in prof.key_averages()
                    if ev.device_type == DeviceType.CUDA), reverse=True)
@@ -4200,11 +4314,14 @@ def profile_ticks(torch, cfg, params, n_ticks: int = 12,
     for dev_ms, count, key in rows[:10]:
         log(f"  {dev_ms:9.3f} ms {count:6d} x  {key[:90]}")
     skv = [r for r in rows if "splitkv" in r[2]]
-    log(f"  split-KV: {calls} wrapper calls; device kernels "
+    log(f"  split-KV: {calls} wrapper calls and {replayed} in {replays} "
+        f"replayed rotations; device kernels "
         + "; ".join(f"{key[:60]} {count} x {dev_ms:.3f} ms"
                     for dev_ms, count, key in skv))
-    if sum(r[1] for r in skv) != calls:
-        raise AssertionError("split-KV device kernels per wrapper call != 1")
+    if sum(r[1] for r in skv) != calls + replayed:
+        raise AssertionError("split-KV device kernels != one per wrapper "
+                             "call and per attention layer of each "
+                             "replayed micro-batch")
 
 
 def main() -> int:
@@ -4278,7 +4395,7 @@ def main() -> int:
     log("[4] full-width serve: granite-moe-1b-a400m, 24 layers, bf16")
     params = init_params(cfg, seed=0, device="cuda")
     log(f"  {tree_count(params) / 1e9:.3f} B parameters")
-    launches = serve(torch, cfg, params, card)
+    launches, sample = serve(torch, cfg, params, card)
 
     log("[5] path check: kernels vs plain versions, full width bf16")
     err = path_check(torch, cfg, params)
@@ -4331,10 +4448,13 @@ def main() -> int:
         profile_ticks(torch, cfg, init_params(cfg, seed=0, device="cuda"))
     log(f"done in {time.perf_counter() - t_start:.1f} s")
 
-    # launches: the serve's counts for the serving path's kernels; the
-    # int8 mode's over phase 15b's int8 dry-run (its first path), beside
-    # its numbers at that path's shape (Kimi K2's F block, gate|up); int4,
-    # which no path runs, reports the launches of its phase-3 checks
+    # launches: the serve's counts for the serving path's kernels, as
+    # Python enqueued them, and the card's own count over its traced ticks
+    # (``device_launches``, which a rotation replayed from its CUDA graph
+    # adds to); the int8 mode's over phase 15b's int8 dry-run (its first
+    # path), beside its numbers at that path's shape (Kimi K2's F block,
+    # gate|up); int4, which no path runs, reports the launches of its
+    # phase-3 checks
     launches.update(check_launches)
     launches["grouped_gemm_int8"] = afd["int8_launches"]["grouped_gemm_int8"]
     int8_row = kimi["grouped_gemm Kimi K2 F block int8 gate|up"]
@@ -4353,6 +4473,9 @@ def main() -> int:
                 "source": "src/repro_torch/kernels/csrc/"
                           f"{SOURCES.get(name, name)}.cu",
                 "replaces": REPLACES[name], "launches": launches[name],
+                **({"device_launches": sample["device"][name],
+                    "device_ticks": sample["engine_ticks"]}
+                   if name in PATH_KERNELS else {}),
                 **measured[name]} for name in REPLACES]
     print(json.dumps({"kernels": kernels}))
     print(card_line())

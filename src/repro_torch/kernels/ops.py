@@ -15,6 +15,10 @@ While a work observer is set (``set_work_observer``), each op runs inside
 these inputs (``*_work`` below) in place of the arithmetic of whichever
 version runs: the plain grouped GEMM multiplies every row by every expert,
 the kernel only the routed rows. With none set, an op pays one check.
+A rotation replayed from a CUDA graph (``parallel.rotation_graph``) runs
+no op here: it reports the calls it captured to the observer itself. The
+launch counters count the launches a wrapper issues, into a graph being
+captured too, and nothing a graph's replay launches.
 """
 
 from __future__ import annotations
@@ -43,6 +47,11 @@ def set_work_observer(observer):
     global _OBSERVER
     previous, _OBSERVER = _OBSERVER, observer
     return previous
+
+
+def work_observer():
+    """The work observer set now, or None."""
+    return _OBSERVER
 
 
 def _bytes(*ts: Optional[torch.Tensor]) -> int:
@@ -141,6 +150,11 @@ def bound_work(work):
     ``work`` itself where it reads shapes alone."""
     return {grouped_gemm_work: grouped_gemm_bound,
             splitkv_work: splitkv_bound}.get(work, work)
+
+
+# The inputs, by their place in ``observer.kernel(work, *inputs)``, whose
+# values a ``*_work`` function reads: the group sizes, the lengths.
+VALUE_INPUTS = {grouped_gemm_work: (2,), splitkv_work: (3,)}
 
 
 def resolve_impl(impl: Optional[str], x: torch.Tensor) -> str:

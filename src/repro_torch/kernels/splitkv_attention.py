@@ -16,14 +16,16 @@ CUDA tensor it launches the kernel or raises.
 The kernel's workspace (the splits' partials and the per-(sequence, kv
 head) arrival counters, which the kernel leaves at 0) is kept per device
 and grown when a call needs more, so calls on one device must be ordered
-on one stream, as PyTorch's current stream orders them.
+on one stream, as PyTorch's current stream orders them. A CUDA graph that
+captured the kernel keeps the workspace it was captured with
+(``workspace_tensors``), which a later growth would otherwise free.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 import torch
 
@@ -93,6 +95,11 @@ def _workspace(dev: torch.device, streams: int, parts: int, d: int):
         ml = torch.empty(parts * 2, dtype=torch.float32, device=dev)
     _WORK[idx] = (cnt, acc, ml)
     return cnt, acc, ml
+
+
+def workspace_tensors() -> List[torch.Tensor]:
+    """Every device's workspace tensors as they are now."""
+    return [t for ws in _WORK.values() for t in ws]
 
 
 def splitkv_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -19,7 +19,14 @@ the serving engine can check them against the Eq. 9/17 prediction (once
 per cycle, whatever N_F).
 ``decode_step_3bo`` issues micro-batches in the 3BO rotation order; the
 rotation runs on one CUDA stream (overlapping it on separate streams is
-later work). ``rescale`` rebuilds a runtime on another role split.
+later work). Where both roles are one CUDA device on the CUDA kernels, a
+rotation is not enqueued call by call once it repeats: the second call
+with the same caches and shapes captures it in a CUDA graph, and later
+ones replay it (``parallel.rotation_graph``; the first runs as it comes,
+so a one-off caller pays no capture). The runtime keeps one captured
+rotation and counts its replays (``replays``): the kernels' launch
+counters see the launches issued into the capture, not those a replay
+makes. ``rescale`` rebuilds a runtime on another role split.
 
 Mixers are attention or Mamba-2 (hybrid archs such as Jamba): a Mamba
 layer's mixer runs on the A role with an O(1) recurrent state, and its
@@ -32,7 +39,10 @@ Under a ``repro_torch.trace`` tracer each piece of the cycle is a span:
 ``afd.a.attn_chunk`` / ``afd.a.mamba_chunk`` (a prefill chunk's mixer;
 ``mamba.steps`` counts the stepped tokens), ``afd.a.route``,
 ``afd.dispatch``, ``afd.f.experts`` (one per F block), ``afd.combine``,
-``afd.a.dense`` (dense FFNs and shared experts) and ``afd.a.head``.
+``afd.a.dense`` (dense FFNs and shared experts) and ``afd.a.head``. None
+of them fires in a replayed rotation, which is one ``afd.rotation.replay``
+span (its capture one ``afd.rotation.capture``); each rotation counts one
+``graph.eager``, ``graph.capture`` or ``graph.replay``.
 """
 
 from __future__ import annotations
@@ -48,6 +58,7 @@ from repro_torch.models import kvcache, mamba2, moe as moe_mod
 from repro_torch.models.common import ArchConfig, LayerSpec, resolve_device
 from repro_torch.models.layers import (apply_lm_head, apply_mlp, apply_norm,
                                        embed_tokens)
+from repro_torch.parallel import rotation_graph
 
 
 def _to(tree, device: torch.device):
@@ -58,6 +69,15 @@ def _to(tree, device: torch.device):
     if isinstance(tree, (list, tuple)):
         return [_to(v, device) for v in tree]
     return tree
+
+
+def _in_place(cache, new):
+    """``new``'s tensors copied into ``cache``'s, and ``cache`` returned:
+    a decode step that returns a new cache (Mamba's) leaves it where the
+    caller's was, the same values."""
+    for name, t in cache.items():
+        t.copy_(new[name])
+    return cache
 
 
 def split_roles(params, cfg: ArchConfig):
@@ -134,6 +154,14 @@ class AFDRuntime:
         self.experts_sharded = n_f > 1 and cfg.n_experts % n_f == 0
         self.impl = impl
         self.stats = AFDStats()
+        # rotations captured in a CUDA graph (``decode_step_3bo``): whether
+        # they can be, the one captured, the key of the last eager one and
+        # the rotations replayed (which no launch counter sees)
+        self._graphable = rotation_graph.applies(self.a_device,
+                                                 self.f_devices, impl)
+        self._graph: Optional[rotation_graph.CapturedRotation] = None
+        self._eager_key = None
+        self.replays = 0
         a_params, f_layers = split_roles(params, cfg)
         self.a_params = _to(a_params, self.a_device)
         if cfg.tie_embeddings:
@@ -277,7 +305,36 @@ class AFDRuntime:
         """Drive the micro-batches through the layer loop in the 3BO
         rotation: per layer, attention for every micro-batch, then every
         micro-batch's FFN cycle. micro_batches: list of (tokens (B,),
-        caches, pos). Returns the list of (logits, caches, pos)."""
+        caches, pos). Returns the list of (logits, caches, pos).
+
+        Where the rotation can be captured (``rotation_graph.applies``)
+        every cache is updated in place, Mamba's too, and the caches
+        returned are the ones given. A rotation whose key
+        (``rotation_graph.rotation_key``) is not the last eager one's runs
+        eager; one that repeats it is captured in a CUDA graph, and while
+        the key matches the captured one it is replayed. Elsewhere it runs
+        eager, and Mamba caches are new tensors."""
+        if not self._graphable:
+            trace.count("graph.eager")
+            return self._rotation(micro_batches)
+        key = rotation_graph.rotation_key(micro_batches, n_bo)
+        if self._graph is not None and self._graph.key == key:
+            trace.count("graph.replay")
+            self.replays += 1
+            with trace.span("afd.rotation.replay"):
+                return self._graph.replay(self, micro_batches)
+        if key != self._eager_key:
+            self._eager_key = key
+            trace.count("graph.eager")
+            return self._rotation(micro_batches)
+        trace.count("graph.capture")
+        with trace.span("afd.rotation.capture"):
+            self._graph = None          # its memory goes before the next
+            self._graph = rotation_graph.capture(self, micro_batches, key)
+            return self._graph.replay(self, micro_batches)
+
+    def _rotation(self, micro_batches):
+        """The rotation enqueued call by call."""
         states = []
         for tokens, caches, pos in micro_batches:
             x = embed_tokens(self.a_params["embed"], self.cfg,
@@ -286,8 +343,11 @@ class AFDRuntime:
         for i, spec in enumerate(self.specs):
             lp = self.a_params["layers"][i]
             for st in states:            # stage 1: A role mixers
-                st["x"], nc = self._mixer(lp, spec, st["x"],
-                                          st["caches"][i], st["pos"])
+                cache = st["caches"][i]
+                st["x"], nc = self._mixer(lp, spec, st["x"], cache,
+                                          st["pos"])
+                if self._graphable and nc is not cache:
+                    nc = _in_place(cache, nc)
                 st["new"].append(nc)
             for st in states:            # stage 2: M2N cycles
                 st["x"] = self._ffn(i, spec, st["x"])

@@ -4,9 +4,13 @@ Counterpart of ``repro.serving.afd_engine``.
 The decode tick drives ``AFDRuntime.decode_step_3bo``: ``n_bo``
 micro-batches of ``mb_slots`` sequences each rotate through the A-role
 attention / dispatch / F-role expert FFN / combine cycle, fed by a
-``serving.workload`` open-loop trace. Prompts are prefilled either token by
-token through the decode path (legacy) or in chunks through
-``AFDRuntime.prefill``, one chunk per tick interleaved with decode.
+``serving.workload`` open-loop trace. The micro-batches keep their caches
+from tick to tick, so on one CUDA device the runtime replays the rotation
+from a CUDA graph from the second decode tick on (``parallel.afd``); the
+engine reads its tokens and positions back before the next. Prompts are
+prefilled either token by token through the decode path (legacy) or in
+chunks through ``AFDRuntime.prefill``, one chunk per tick interleaved with
+decode.
 
 Per window the engine records the SLO metrics (goodput, TTFT p50/p95,
 mean TPOT) and the runtime's measured dispatch/combine bytes beside the
