@@ -164,6 +164,7 @@ class LoopResult:
     completed: list                       # the engine's finished requests
     queue_open: int = 0                   # waiting when the window opened
     queue_close: int = 0                  # and when it closed
+    chunk_ticks: frozenset = frozenset()  # returns of ticks that ran a chunk
 
 
 def run_loop(eng, events: List[tr.ArrivalEvent], warmup_s: float,
@@ -190,6 +191,7 @@ def run_loop(eng, events: List[tr.ArrivalEvent], warmup_s: float,
     n_done = 0
     ticks = 0
     q_open = q_close = 0
+    chunk_ticks = set()
     while True:
         now = time.perf_counter()
         if not opened and now >= w0:
@@ -221,10 +223,13 @@ def run_loop(eng, events: List[tr.ArrivalEvent], warmup_s: float,
                        else now + 0.05)
             time.sleep(max(0.0, min(wake - time.perf_counter(), 0.05)))
             continue
+        chunks = eng.stats.prefill_chunks
         t_tick = time.perf_counter()
         tick()
         t_ret = time.perf_counter()
         ticks += 1
+        if eng.stats.prefill_chunks != chunks:
+            chunk_ticks.add(t_ret)
         if on_tick:
             on_tick(t_tick, t_ret)
         now_live = {r.rid: r for r in eng.live_requests()}
@@ -239,7 +244,8 @@ def run_loop(eng, events: List[tr.ArrivalEvent], warmup_s: float,
                 r.stamps.append(t_ret)
     return LoopResult(reqs, w0, w1, warmup_s, warmup_s + seconds,
                       time.perf_counter(), ticks,
-                      list(eng.completed), q_open, q_close)
+                      list(eng.completed), q_open, q_close,
+                      frozenset(chunk_ticks))
 
 
 def window_served(res: LoopResult) -> list:
@@ -263,12 +269,14 @@ def window_metrics(res: LoopResult, seconds: float) -> dict:
     due = [r for r in res.reqs.values() if res.rel0 <= r.t_rel < res.rel1]
     ttft = [(r.stamps[0] if r.stamps else res.end) - r.due for r in due]
     gaps, tokens = [], 0
+    by_kind = {True: [], False: []}       # does the gap end at a chunk tick
     for r in res.reqs.values():
         for i, t in enumerate(r.stamps):
             if res.w0 <= t < res.w1:
                 tokens += 1
                 if i:
                     gaps.append(t - r.stamps[i - 1])
+                    by_kind[t in res.chunk_ticks].append(gaps[-1])
     waits = [r.admitted - r.due for r in due if not math.isnan(r.admitted)]
     half = (res.rel0 + res.rel1) / 2
     first = [t for r, t in zip(due, ttft) if r.t_rel < half]
@@ -280,6 +288,10 @@ def window_metrics(res: LoopResult, seconds: float) -> dict:
             "ttft_mean_s": mean(ttft),
             "itl_p95_s": pctl(gaps, 95), "itl_p50_s": pctl(gaps, 50),
             "itl_mean_s": mean(gaps), "itl_n": len(gaps),
+            "itl_chunk_share": (len(by_kind[True]) / len(gaps)
+                                if gaps else None),
+            "itl_p50_chunk_s": pctl(by_kind[True], 50),
+            "itl_p50_rotation_s": pctl(by_kind[False], 50),
             "tokens_per_s": tokens / seconds, "tokens": tokens,
             "queue_wait_p95_s": pctl(waits, 95),
             "late_p50_s": pctl(late, 50), "late_max_s": max(late or [0.0]),
@@ -558,7 +570,10 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float,
         f"first token; {m['tokens']} tokens; TTFT p50 {m['ttft_p50_s']} s, "
         f"p95 {m['ttft_p95_s']} s, mean {m['ttft_mean_s']} s; ITL p95 "
         f"{m['itl_p95_s']} s; ITL p50 {m['itl_p50_s']} s, mean "
-        f"{m['itl_mean_s']} s over {m['itl_n']} gaps; queue wait "
+        f"{m['itl_mean_s']} s over {m['itl_n']} gaps, a share "
+        f"{m['itl_chunk_share']} of them ending at a tick that ran a "
+        f"prefill chunk (p50 {m['itl_p50_chunk_s']} s; the others' p50 "
+        f"{m['itl_p50_rotation_s']} s); queue wait "
         f"p95 {m['queue_wait_p95_s']} s; generator late p50 "
         f"{m['late_p50_s']:.6f} s, max {m['late_max_s']:.6f} s; "
         f"{res.ticks} ticks in the run; queue {m['queue_open']} -> "

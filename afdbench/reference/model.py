@@ -4,8 +4,9 @@ A whole-sequence forward pass, no cache and no kernels: pre-norm
 residual layers whose mixer is grouped-query attention with rotary
 positions (causal softmax over the whole prefix) or a Mamba-2 mixer run
 as its per-token recurrence, and whose FFN is a top-k routed mixture of
-gated SiLU experts or a dense gated SiLU MLP; a final RMS norm and the LM
-head. It reads the configuration's sizes and the benchmark's weights
+gated SiLU experts (plus its shared experts, one gated SiLU MLP, where the
+configuration has them) or a dense gated SiLU MLP; a final RMS norm and
+the LM head. It reads the configuration's sizes and the benchmark's weights
 (``afdbench.weights``' layout) and imports nothing of the program.
 
 The layers run one after another over every sequence, so one layer's
@@ -157,10 +158,12 @@ class Reference:
             y = self._mm(F.silu(hi[:, :mf]) * hi[:, mf:],
                          self._w(lp["wo"][e]))
             out.index_add_(0, rows, y * topw[rows, slot][:, None])
+        if "shared" in lp:
+            out = out + self._mlp(lp["shared"], h)
         return out
 
     def _mlp(self, lp: dict, h: torch.Tensor) -> torch.Tensor:
-        f = self.arch["d_ff"]
+        f = lp["wo"].shape[0]
         hi = self._mm(h, self._w(lp["wi"]))
         return self._mm(F.silu(hi[:, :f]) * hi[:, f:], self._w(lp["wo"]))
 

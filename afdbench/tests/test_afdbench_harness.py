@@ -43,8 +43,24 @@ def test_no_module_imports_jax_or_the_jax_package():
 
 
 def test_reference_imports_nothing_of_the_program():
-    for p in (BENCH / "reference").rglob("*.py"):
+    """Every reference file and the weights it reads, nor anything of
+    ``afdbench`` they import."""
+    todo = list((BENCH / "reference").rglob("*.py")) + [BENCH / "weights.py"]
+    seen = set()
+    while todo:
+        p = todo.pop()
+        if p in seen:
+            continue
+        seen.add(p)
         assert "repro_torch" not in set(_imports(p)), p
+        for node in ast.walk(ast.parse(p.read_text())):
+            if isinstance(node, ast.ImportFrom) and node.level == 0 \
+                    and node.module.split(".")[0] == "afdbench":
+                base = ROOT.joinpath(*node.module.split("."))
+                todo += [f for f in [base.with_suffix(".py")]
+                         + [base / f"{a.name}.py" for a in node.names]
+                         if f.is_file()]
+    assert BENCH / "work.py" in seen
 
 
 def test_nothing_reads_the_jax_benchmarks_folder():
@@ -93,6 +109,40 @@ def test_benchmark_json_keeps_the_contract():
             m["layer"], m["unit"], m["moves"])
         if m["name"].endswith("_roofline") or "mfu" in m["name"]:
             assert m["unit"] == "%"
+
+
+@pytest.mark.parametrize("name", sorted(
+    p.name[:-3] for p in (BENCH / "metrics").glob("*.over.py")))
+def test_an_over_reader_reads_what_its_base_reads(name):
+    """A metric of the cell held past capacity reads as the reader it is
+    named after, and only the end-to-end metric it moves differs."""
+    over = harness.load_reader(ROOT, name)
+    base = harness.load_reader(ROOT, name[:-len(".over")])
+    t = harness.TraceData(
+        arch=tiny.CONFIGS["tiny-moe"]["port"], span_s=2.0,
+        walls={"engine.tick": [0.09, 0.1], "runtime.prefill": [0.07]},
+        prefill_chunks=[(512, 0)], decode_contexts=[300] * 96,
+        queue_wait_p95_s=1.0, window_s=6.0, ticks=2, calls=[],
+        profile={"busy_s": 1.0})
+    assert over.read(t) is not None and over.read(t) == base.read(t)
+    assert (over.LAYER, over.UNIT) == (base.LAYER, base.UNIT)
+    assert over.MOVES == "tokens_per_s" != base.MOVES
+
+
+@pytest.mark.parametrize("limits, ok, names", [
+    ({"mean_gap": {"limit": 0.002}}, True, ["mean_logit_gap"]),
+    ({"p99_gap": {"limit": 0.04}}, False, ["p99_logit_gap"]),
+    ({"mean_gap": {"limit": 0.002}, "p99_gap": {"limit": 0.09}}, True,
+     ["mean_logit_gap", "p99_logit_gap"]),
+    ({"mean_gap": {"limit": 0.0005}, "p99_gap": {"limit": 0.09}}, False,
+     ["mean_logit_gap", "p99_logit_gap"])])
+def test_judge_holds_each_gap_the_check_file_names(limits, ok, names):
+    reading = {"mean_gap": 0.001, "p99_gap": 0.05, "tokens": 200}
+    got, checks = chk.judge(reading, dict(limits, min_tokens=150))
+    assert got is ok
+    assert [c[0] for c in checks] == names + ["served_tokens_compared"]
+    with pytest.raises(ValueError):
+        chk.judge(reading, {"min_tokens": 150})
 
 
 def test_mixes_hold_their_longest_requests():

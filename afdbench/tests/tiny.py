@@ -1,5 +1,7 @@
 """A copy of the benchmark in a temporary root with two tiny cells added
-as files (a MoE transformer and a Mamba hybrid, float32, on the CPU)."""
+as files (a MoE transformer and a Mamba hybrid, float32, on the CPU), and
+a third (a MoE with a shared expert) that ``add_shared`` adds the same
+way."""
 
 from __future__ import annotations
 
@@ -48,6 +50,30 @@ MOVES = "itl_p95_s"
 def read(t):
     return float(t.ticks)
 '''
+
+
+SHARED = {"name": "tiny-shared", "engine": {"n_bo": 2, "mb_slots": 2,
+                                           "prefill_chunk": 8},
+          "port": dict(CONFIGS["tiny-moe"]["port"], name="tiny-shared",
+                       n_shared_experts=1, shared_d_ff=48)}
+SHARED_CELL = "tiny-shared-cell"
+
+
+def add_shared(root: Path) -> Path:
+    """A MoE with a shared expert added to ``root`` as a cell by writing
+    new files (and its entries in ``BENCHMARK.json``)."""
+    bench = json.loads((root / "BENCHMARK.json").read_text())
+    (root / "afdbench" / "configs" / "tiny-shared.json").write_text(
+        json.dumps(SHARED))
+    (root / "afdbench" / "checks" / f"{SHARED_CELL}.json").write_text(
+        json.dumps({"mean_gap": {"limit": LIMIT}, "min_tokens": 12}))
+    bench["configs"].append({"name": "tiny-shared", "source": "test",
+                             "file": "afdbench/configs/tiny-shared.json",
+                             "reduced": [], "why": "test"})
+    bench["workloads"].append({"name": SHARED_CELL, "config": "tiny-shared",
+                               "traffic": "tiny", "chips": 1, "why": "test"})
+    (root / "BENCHMARK.json").write_text(json.dumps(bench))
+    return root
 
 
 def make_root(tmp: Path) -> Path:

@@ -7,8 +7,11 @@ device with one ``torch.Generator`` into two flat buffers (one in the
 served dtype, one in float32 for the router and the Mamba scalars) in one
 call each, and scaled per leaf: N(0, 1/fan_in) for a matrix, N(0, 0.02²)
 for the embedding, ones for norm scales and ``D``, zeros for biases and
-``dt_bias``, ``A_log`` = log(linspace(1, 16)) over the heads. The same
-tensors go to the program and, read only, to the reference.
+``dt_bias``, ``A_log`` = log(linspace(1, 16)) over the heads. A MoE
+layer's shared experts (``n_shared_experts`` of width ``shared_d_ff``, or
+``moe_d_ff``) are one gated MLP, ``moe.shared``, drawn after its routed
+experts. The same tensors go to the program and, read only, to the
+reference.
 """
 
 from __future__ import annotations
@@ -71,6 +74,12 @@ def _leaf_specs(arch: dict) -> List[Tuple[tuple, tuple, str, float]]:
                 (p + ("moe", "wi"), (e, d, 2 * mf), "normal",
                  1 / math.sqrt(d)),
                 (p + ("moe", "wo"), (e, mf, d), "normal", 1 / math.sqrt(mf))]
+            if arch.get("n_shared_experts", 0):
+                sf = (arch.get("shared_d_ff") or mf) * arch["n_shared_experts"]
+                specs += [(p + ("moe", "shared", "wi"), (d, 2 * sf), "normal",
+                           1 / math.sqrt(d)),
+                          (p + ("moe", "shared", "wo"), (sf, d), "normal",
+                           1 / math.sqrt(sf))]
         elif ffn == "mlp":
             f = arch["d_ff"]
             specs += [(p + ("mlp", "wi"), (d, 2 * f), "normal",
